@@ -1,0 +1,350 @@
+"""The per-frame SVO state machine — port of ``stereo_svo_tpu/engine/step.py``
+(without window BA and online loop closure, which raise in ``make_step``).
+
+One frame: pyramid (kernels B1, B2) → relocalisation scoring → coarse-to-fine
+alignment (B3, B4) → KLT (B3) → stereo re-measurement (B3) → pose refinement
+→ depth filters → keyframe decision → on keyframe frames ``keyframe.insert``
+→ template rebuild (B3).
+
+Control flow. The reference keeps every branch on the device with
+``lax.cond``; here they are host ``if``s:
+
+* boot vs track: the host knows whether a keyframe exists (``HostFlags``);
+* the rotated relocalisation variants: gated by the previous frame's
+  ``tracking_ok``, which the host already holds;
+* the keyframe branch: one ``.tolist()`` on (need_kf, ok) per tracked
+  frame — the step's only host sync.
+
+``fori_loop``s with static trip counts are Python loops. No tensor of the
+state is updated in place: each phase returns a new ``SlamState``, as in
+the reference.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from ..backend import loop_closure
+from ..config import SvoConfig
+from ..frontend import keyframe, pose_refine
+from ..geometry import camera as cam_mod
+from ..geometry import se3
+from ..ops import align as align_ops
+from ..ops import depth_filter, klt as klt_ops, pyramid, stereo_match
+from .state import (STATUS_DEAD, STATUS_LANDMARK, STATUS_SEED, FrameOut,
+                    SlamState)
+
+_I32 = torch.int32
+
+
+def world_points(cfg: SvoConfig, state: SlamState) -> torch.Tensor:
+    """(N,3) world positions from owner-KF anchor + inverse-depth mean."""
+    z = 1.0 / torch.clamp(state.mu, min=1e-4)
+    p_kf = cam_mod.backproject(cfg.camera, state.kf_uv, z)
+    return se3.transform(state.kf_T_wk[state.kf_id], p_kf)
+
+
+def _index0(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """x[i] along dim 0 for a 0-dim index tensor, without a host sync."""
+    return x.index_select(0, i.reshape(1).long())[0]
+
+
+def _masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    s = torch.sort(torch.where(mask, x, torch.full_like(x, float("inf")))
+                   ).values
+    n = mask.sum()
+    idx = torch.clamp((n - 1) // 2, 0, x.shape[0] - 1)
+    # all-false mask (fully lost frame): a benign positive depth, not inf
+    return torch.where(n > 0, _index0(s, idx), torch.ones_like(s[0]))
+
+
+def _rebuild_template(cfg: SvoConfig, state: SlamState, pyr_l, gxs, gys,
+                      T_cw: torch.Tensor, z_obs=None,
+                      z_obs_ok=None) -> SlamState:
+    """Anchor the next frame's alignment template at the current frame;
+    ``z_obs``/``z_obs_ok`` override map depths with this frame's stereo."""
+    z_cur = se3.transform(T_cw, world_points(cfg, state))[..., 2]
+    if z_obs is not None:
+        z_cur = torch.where(z_obs_ok & (z_obs > 0.1), z_obs, z_cur)
+    mask = ((state.status > 0) & (z_cur > 0.1)
+            & cam_mod.in_bounds(cfg.camera, state.feat_uv,
+                                margin=cfg.align_patch))
+    tmpl = align_ops.make_template(pyr_l, gxs, gys, cfg.camera, cfg,
+                                   state.feat_uv, z_cur, mask)
+    return state._replace(tmpl=tmpl)
+
+
+class TrackCtx(NamedTuple):
+    """Per-frame tracking context threaded between the step phases."""
+    T_cw: torch.Tensor
+    ok: torch.Tensor
+    need_kf: torch.Tensor
+    n_inl: torch.Tensor
+    med_depth: torch.Tensor
+    align_cost: torch.Tensor
+    align_inlier_frac: torch.Tensor
+    refine_rms_px: torch.Tensor
+    n_seed_deaths: torch.Tensor
+    n_epi_recovered: torch.Tensor
+    tmpl_z_obs: torch.Tensor
+    tmpl_z_ok: torch.Tensor
+
+
+class HostFlags(NamedTuple):
+    """What the host knows about the state without reading the device."""
+    booted: bool        # a keyframe exists (the reference: any(kf_valid))
+    tracking_ok: bool   # the previous frame tracked
+
+
+def host_flags(state: SlamState) -> HostFlags:
+    """Read HostFlags from a state (one host sync)."""
+    booted, ok = torch.stack([state.kf_valid.any(),
+                              state.tracking_ok]).tolist()
+    return HostFlags(bool(booted), bool(ok))
+
+
+def make_phases(cfg: SvoConfig):
+    """The per-frame state machine as (boot, track_phase, kf_phase,
+    post_phase), as the reference's ``make_phases``."""
+    cam = cfg.camera
+
+    def boot(st: SlamState, pyr_l, gxs, gys, img_r):
+        """First frame: create the bootstrap keyframe."""
+        dev = st.T_cw.device
+        T_cw = st.T_cw
+        st = keyframe.insert(cfg, st, pyr_l, gxs, gys, img_r, T_cw)
+        st = _rebuild_template(cfg, st, pyr_l, gxs, gys, T_cw)
+        true = torch.ones((), dtype=torch.bool, device=dev)
+        st = st._replace(T_pw=T_cw, vel=torch.zeros(6, device=dev),
+                         frame_idx=st.frame_idx + 1, tracking_ok=true)
+        z = torch.zeros((), device=dev)
+        zi = torch.zeros((), dtype=_I32, device=dev)
+        out = FrameOut(
+            T_wc=se3.inverse(T_cw), tracking_ok=true, kf_inserted=true,
+            n_tracked=(st.status > 0).sum().to(_I32),
+            n_seeds=(st.status == STATUS_SEED).sum().to(_I32),
+            n_landmarks=(st.status == STATUS_LANDMARK).sum().to(_I32),
+            align_cost=z, align_inlier_frac=z + 1.0, refine_rms_px=z,
+            median_depth=_masked_median(
+                1.0 / torch.clamp(st.mu, min=1e-4), st.status > 0),
+            n_seed_deaths=zi, n_epi_recovered=zi, ba_diag=st.ba_diag)
+        return st, out
+
+    def track_phase(st: SlamState, pyr_l, gxs, gys, img_r,
+                    prev_ok: bool = True) -> Tuple[SlamState, TrackCtx]:
+        # --- 1. sparse direct alignment vs previous frame, seeded from the
+        # constant-velocity prior or, after a failure, the relocalisation
+        # keyframe ---
+        T_init_vel = se3.exp(st.vel)
+        reloc, reloc_score = loop_closure.relocalize(
+            st.mem_desc, st.mem_valid, pyr_l[cfg.num_levels - 1],
+            cfg.loop_desc_rows, cfg.loop_desc_cols,
+            n_rot=cfg.pr_rot_variants, rot_step=cfg.pr_rot_step_rad,
+            rot_gate=not prev_ok)
+        latest = torch.argmax(torch.where(
+            st.mem_valid, st.mem_stamp, torch.full_like(st.mem_stamp, -1)))
+        reloc = torch.where(reloc_score >= cfg.reloc_min_score,
+                            reloc.long(), latest)
+        T_reloc_wk = _index0(st.mem_T_wk, reloc)
+        T_kf_rel = se3.compose(se3.inverse(T_reloc_wk), se3.inverse(st.T_pw))
+        T_init = torch.where(st.tracking_ok, T_init_vel, T_kf_rel)
+        T_cp, align_stats = align_ops.align(pyr_l, st.tmpl, cam, cfg, T_init)
+        T_cw_pred = se3.compose(T_cp, st.T_pw)
+
+        # --- 2. KLT feature alignment vs keyframe templates ---
+        active = st.status > 0
+        X_w = world_points(cfg, st)
+        x_c = se3.transform(T_cw_pred, X_w)
+        uv_pred, front = cam_mod.project(cam, x_c)
+        in_img = front & cam_mod.in_bounds(cam, uv_pred,
+                                           margin=cfg.klt_patch + 2)
+        klt_mask = active & in_img
+        uv_ref, klt_ok, _ = klt_ops.track(
+            pyr_l, st.klt_tmpl._replace(mask=st.klt_tmpl.mask & klt_mask),
+            cfg, uv_pred, edge_dir=st.feat_dir, is_edgelet=~st.feat_corner)
+        tracked = klt_mask & klt_ok
+
+        # --- 3. per-frame stereo disparity at the tracked positions ---
+        disp_m = ok_m = None
+        if cfg.stereo_refresh_window > 0:
+            z_pred = torch.clamp(x_c[..., 2], min=0.2)
+            disp_m, _, ok_m = stereo_match.refine_disparity(
+                pyr_l[0], img_r, uv_ref, cam.fx * cam.baseline / z_pred,
+                cfg.stereo_refresh_window, cfg.stereo_patch)
+
+        # --- 4. motion-only pose refinement ---
+        obs_sigma = torch.exp2(st.feat_level.to(torch.float32))
+        sig_reproj = sig_disp = obs_sigma
+        if cfg.refine_whiten_depth:
+            sd_mu = torch.sqrt(torch.clamp(st.sigma2, min=0.0))
+            t_ck = se3.translation(se3.compose(T_cw_pred[None],
+                                               st.kf_T_wk[st.kf_id]))
+            t_ck_n = torch.sqrt(torch.sum(t_ck * t_ck, -1))
+            sig_reproj = torch.sqrt(obs_sigma ** 2
+                                    + (cam.fx * t_ck_n * sd_mu) ** 2)
+            sig_disp = torch.sqrt(obs_sigma ** 2
+                                  + (cam.fx * cam.baseline * sd_mu) ** 2)
+        T_prior = se3.compose(T_init, st.T_pw)
+        T_cw, inliers, refine_stats = pose_refine.refine(
+            cam, cfg, T_cw_pred, X_w, uv_ref, tracked,
+            obs_sigma=sig_reproj, T_prior=T_prior, disp_obs=disp_m,
+            disp_mask=None if ok_m is None else (tracked & ok_m),
+            obs_sigma_d=sig_disp)
+        n_inl = refine_stats["refine_inliers"]
+        ok = (n_inl >= 10) & torch.all(torch.isfinite(T_cw))
+        # failed frame: anchor at the relocalisation keyframe instead
+        T_cw = torch.where(ok, T_cw, se3.inverse(T_reloc_wk))
+
+        # --- feature bookkeeping ---
+        lost = ok & active & (~in_img | (tracked & ~inliers))
+        status = torch.where(lost, torch.full_like(st.status, STATUS_DEAD),
+                             st.status)
+        feat_uv = torch.where((ok & tracked & inliers)[:, None], uv_ref,
+                              uv_pred)
+
+        # --- 5. recursive depth-filter updates ---
+        T_ck = se3.compose(T_cw[None], st.kf_T_wk[st.kf_id])   # (N,3,4)
+        seeds = ok & (status == STATUS_SEED) & inliers
+        upd = depth_filter.observe_and_update(
+            cam, cfg, T_ck, st.kf_uv, feat_uv, st.mu, st.sigma2, st.a_beta,
+            st.b_beta, st.z_range, seeds, px_scale=obs_sigma)
+        n_upd = st.n_upd + upd.updated.to(_I32)
+        if cfg.stereo_refresh_window > 0:
+            refresh_status = (status > 0) if cfg.stereo_refresh_landmarks \
+                else (status == STATUS_SEED)
+            upd2 = depth_filter.stereo_observe_and_update(
+                cam, cfg, se3.inverse(T_ck), feat_uv, disp_m, ok_m,
+                upd.mu, upd.sigma2, upd.a, upd.b, st.z_range,
+                ok & refresh_status & tracked & inliers, px_scale=obs_sigma)
+            upd = upd._replace(mu=upd2.mu, sigma2=upd2.sigma2, a=upd2.a,
+                               b=upd2.b)
+        conv = depth_filter.converged(cfg, upd.mu, upd.sigma2)
+        div = depth_filter.diverged(cfg, upd.a, upd.b, n_upd)
+        status = torch.where((status == STATUS_SEED) & conv,
+                             torch.full_like(status, STATUS_LANDMARK), status)
+        status = torch.where((status == STATUS_SEED) & div,
+                             torch.full_like(status, STATUS_DEAD), status)
+        n_seed_deaths = ((st.status == STATUS_SEED)
+                         & (status == STATUS_DEAD)).sum().to(_I32)
+        st = st._replace(status=status, feat_uv=feat_uv, mu=upd.mu,
+                         sigma2=upd.sigma2, a_beta=upd.a, b_beta=upd.b,
+                         n_upd=n_upd)
+
+        # --- 6. keyframe decision, distance measured from the predicted
+        # (constant-velocity) centre ---
+        z_cur = se3.transform(T_cw, world_points(cfg, st))[..., 2]
+        med_depth = _masked_median(z_cur, st.status > 0)
+        c_cur = se3.translation(se3.inverse(T_prior))
+        c_kf = se3.translation(_index0(st.kf_T_wk, st.last_kf))
+        kf_dist = torch.sqrt(torch.sum((c_cur - c_kf) ** 2))
+        regular = ((n_inl < cfg.kf_min_tracked)
+                   | (kf_dist > cfg.kf_dist_ratio * med_depth))
+        if cfg.kf_every > 1:
+            urgent = n_inl < max(10, cfg.kf_min_tracked // 2)
+            eligible = (st.frame_idx % cfg.kf_every) == 0
+            regular = urgent | (regular & eligible)
+        need_kf = ok & st.tracking_ok & regular
+
+        if cfg.align_tmpl_stereo and disp_m is not None:
+            tmpl_z_obs = cam.fx * cam.baseline / torch.clamp(disp_m, min=0.25)
+            tmpl_z_ok = tracked & inliers & ok_m
+        else:
+            tmpl_z_obs = torch.zeros_like(st.mu)
+            tmpl_z_ok = torch.zeros_like(tracked)
+        zi = torch.zeros((), dtype=_I32, device=status.device)
+        ctx = TrackCtx(
+            T_cw=T_cw, ok=ok, need_kf=need_kf, n_inl=n_inl,
+            med_depth=med_depth, align_cost=align_stats["align_cost"],
+            align_inlier_frac=align_stats["align_inlier_frac"],
+            refine_rms_px=refine_stats["refine_rms_px"],
+            n_seed_deaths=n_seed_deaths, n_epi_recovered=zi,
+            tmpl_z_obs=tmpl_z_obs, tmpl_z_ok=tmpl_z_ok)
+        return st, ctx
+
+    def kf_phase(st: SlamState, pyr_l, gxs, gys, img_r,
+                 T_cw: torch.Tensor) -> SlamState:
+        return keyframe.insert(cfg, st, pyr_l, gxs, gys, img_r, T_cw)
+
+    def post_phase(st: SlamState, pyr_l, gxs, gys, ctx: TrackCtx
+                   ) -> Tuple[SlamState, FrameOut]:
+        T_cw_kf = se3.inverse(_index0(st.kf_T_wk, st.last_kf))
+        T_cw = torch.where(ctx.need_kf, T_cw_kf, ctx.T_cw)
+        # --- 7. re-anchor next frame's alignment template (the stereo
+        # depth override holds only on non-keyframe frames) ---
+        st = _rebuild_template(cfg, st, pyr_l, gxs, gys, T_cw,
+                               z_obs=ctx.tmpl_z_obs,
+                               z_obs_ok=ctx.tmpl_z_ok & ~ctx.need_kf)
+        vel = se3.log(se3.compose(T_cw, se3.inverse(st.T_pw)))
+        vel = torch.where(ctx.ok, vel, 0.5 * st.vel)
+        st = st._replace(T_cw=T_cw, T_pw=T_cw, vel=vel,
+                         frame_idx=st.frame_idx + 1, tracking_ok=ctx.ok)
+        out = FrameOut(
+            T_wc=se3.inverse(T_cw), tracking_ok=ctx.ok,
+            kf_inserted=ctx.need_kf, n_tracked=ctx.n_inl.to(_I32),
+            n_seeds=(st.status == STATUS_SEED).sum().to(_I32),
+            n_landmarks=(st.status == STATUS_LANDMARK).sum().to(_I32),
+            align_cost=ctx.align_cost,
+            align_inlier_frac=ctx.align_inlier_frac,
+            refine_rms_px=ctx.refine_rms_px, median_depth=ctx.med_depth,
+            n_seed_deaths=ctx.n_seed_deaths,
+            n_epi_recovered=ctx.n_epi_recovered, ba_diag=st.ba_diag)
+        return st, out
+
+    return boot, track_phase, kf_phase, post_phase
+
+
+def check_supported(cfg: SvoConfig) -> None:
+    """Raise NotImplementedError for a knob this port does not carry yet,
+    naming the ROADMAP item that will port it."""
+    unported = [
+        (cfg.use_ba, "use_ba=True: window BA is ROADMAP item A11"),
+        (cfg.online_loop_every > 0,
+         "online_loop_every>0: online loop closure is ROADMAP item A16"),
+        (cfg.epi_samples > 0,
+         "epi_samples>0: the epipolar search is ROADMAP item A14"),
+        (cfg.klt_affine_warp,
+         "klt_affine_warp: the affine KLT template is ROADMAP item A14"),
+        (cfg.dtype != "float32",
+         f"dtype={cfg.dtype!r}: bfloat16 is ROADMAP item A14"),
+    ]
+    for bad, why in unported:
+        if bad:
+            raise NotImplementedError(why)
+
+
+def make_step(cfg: SvoConfig):
+    """The per-frame step for a static config:
+    ``step(state, img_l, img_r, flags=None) -> (state, FrameOut, flags)``.
+
+    ``flags`` (``HostFlags``) carries what the host knows between frames;
+    without it the step reads it from the state (one extra host sync).
+    Images are contiguous float32 (H,W) tensors on the state's device.
+    """
+    check_supported(cfg)
+    boot, track_phase, kf_phase, post_phase = make_phases(cfg)
+
+    def step(state: SlamState, img_l: torch.Tensor, img_r: torch.Tensor,
+             flags: Optional[HostFlags] = None
+             ) -> Tuple[SlamState, FrameOut, HostFlags]:
+        if flags is None:
+            flags = host_flags(state)
+        pyr_l, gxs, gys = pyramid.build_with_gradients(img_l, cfg.num_levels)
+        if not flags.booted:
+            st, out = boot(state, pyr_l, gxs, gys, img_r)
+            return st, out, HostFlags(booted=True, tracking_ok=True)
+        st, ctx = track_phase(state, pyr_l, gxs, gys, img_r,
+                              prev_ok=flags.tracking_ok)
+        # the step's one host sync
+        need_kf, ok = torch.stack([ctx.need_kf, ctx.ok]).tolist()
+        if need_kf:
+            st = kf_phase(st, pyr_l, gxs, gys, img_r, ctx.T_cw)
+        st, out = post_phase(st, pyr_l, gxs, gys, ctx)
+        return st, out, HostFlags(booted=True, tracking_ok=bool(ok))
+
+    return step
+
+
+__all__ = ["make_step", "make_phases", "world_points", "HostFlags",
+           "host_flags", "check_supported"]

@@ -1,0 +1,120 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+
+``nvcc`` compiles every source into one shared library with a plain C
+interface, loaded with ``ctypes`` — no PyTorch headers, so the build takes
+seconds. The library goes to ``build/stereo_svo_tpu_torch/`` at the repo
+root, named by a hash of the sources and flags, at the first CUDA call.
+Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "stereo_svo_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+              "-Xptxas", "-v"]
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
+_SIGNATURES = {
+    "svo_halfsample": [_P, _P, _I, _I, _P],
+    "svo_gradients": [_P, _P, _P, _I, _I, _P],
+    "svo_sample_patch": [_P, _I, _I, _P, _L, _I, _P, _P],
+    "svo_gn_blocks": [_I, _I],
+    "svo_gn_accumulate": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _F,
+                          _P, _P, _P],
+}
+
+_lib = None  # the loaded library, once built
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit to build")
+
+
+def library_path() -> Path:
+    sources = sorted(CSRC.glob("*.cu"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libsvo_kernels_{h.hexdigest()[:16]}.so"
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; raise on failure."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    out = library_path()
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *map(str, sorted(CSRC.glob("*.cu")))]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        out.with_suffix(".log").write_text(
+            " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stderr[-4000:]}")
+        os.replace(tmp, out)   # atomic: a concurrent build never sees half
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def is_cpu(*tensors: torch.Tensor) -> bool:
+    """True if the kernel's plain version applies (all tensors on the CPU);
+    False for CUDA tensors. Any other device, or a mix, raises."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return False
+    raise ValueError(f"kernel inputs must all be on one CPU or CUDA device, "
+                     f"got {sorted(str(t.device) for t in tensors)}")
+
+
+def check(t: torch.Tensor, name: str, shape: tuple) -> None:
+    """Raise unless ``t`` is a contiguous float32 tensor of ``shape``
+    (``None`` entries match any size)."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: float32 required, got {t.dtype}")
+    if t.dim() != len(shape) or any(
+            s is not None and s != d for s, d in zip(shape, t.shape)):
+        raise ValueError(f"{name}: shape {tuple(t.shape)} does not match "
+                         f"{shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: contiguous tensor required")
+
+
+def raise_on_error(rc: int, kernel: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {kernel} failed to launch: "
+                           f"cudaError {rc}")

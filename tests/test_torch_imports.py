@@ -1,0 +1,89 @@
+"""The port stands alone: no module of ``stereo_svo_tpu_torch`` (nor
+``chip_smoke.py``) imports jax or the ``stereo_svo_tpu`` package; the only
+link is the two numpy-only files loaded by path (config.py, eval/ate.py).
+
+An AST scan, plus an import of every port module in a fresh interpreter
+where jax and the reference package cannot be imported (a start-up hook
+of the test environment may import jax, so checking ``sys.modules`` alone
+proves nothing).
+"""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "stereo_svo_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "stereo_svo_tpu")
+SHARED_FILES = {"config.py", "eval/ate.py"}
+
+
+def _sources():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return [f for f in files if f.exists()]
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _offences(path):
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__")):
+            names = [node.args[0].value]
+        for name in names:
+            if _forbidden(name):
+                yield f"{path.relative_to(ROOT)}:{node.lineno} imports {name}"
+        if (isinstance(node, ast.Call)
+                and getattr(node.func, "id", "") == "load_reference_file"
+                and node.args[0].value not in SHARED_FILES):
+            yield (f"{path.relative_to(ROOT)}:{node.lineno} loads "
+                   f"{node.args[0].value}")
+
+
+def test_no_jax_or_reference_imports():
+    files = _sources()
+    assert len(files) >= 20
+    offences = [o for f in files for o in _offences(f)]
+    assert not offences, offences
+
+
+_BLOCKED_IMPORT = r"""
+import importlib, importlib.abc, pkgutil, sys
+for m in list(sys.modules):
+    if m.split(".")[0] in ("jax", "jaxlib", "stereo_svo_tpu"):
+        del sys.modules[m]
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "stereo_svo_tpu"):
+            raise ImportError("blocked: " + name)
+sys.meta_path.insert(0, Block())
+import stereo_svo_tpu_torch
+n = 0
+for info in pkgutil.walk_packages(stereo_svo_tpu_torch.__path__,
+                                  "stereo_svo_tpu_torch."):
+    importlib.import_module(info.name)
+    n += 1
+print("imported", n)
+"""
+
+
+def test_port_imports_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.split()[-1]) >= 20

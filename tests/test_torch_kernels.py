@@ -1,0 +1,247 @@
+"""The port's kernels B1-B4: plain PyTorch versions against the JAX
+reference (XLA path and the Pallas kernels in interpret mode), and the CUDA
+kernels against their plain versions (``cuda`` marker: skipped without a
+card).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from stereo_svo_tpu_torch.ops.kernels import align_kernel, pyramid_kernel
+
+try:
+    import jax
+    import jax.numpy as jnp
+
+    from stereo_svo_tpu.ops import interp as jinterp
+    from stereo_svo_tpu.ops import pyramid as jpyramid
+    from stereo_svo_tpu.ops.pallas import align_kernel as pallas_align
+    from stereo_svo_tpu.ops.pallas import pyramid_kernel as pallas_pyr
+    INTERPRET = jax.default_backend() != "tpu"
+except ImportError:
+    # the card's machine has no JAX: there only the ``cuda`` tests run,
+    # with ``pytest --noconftest -m cuda tests/test_torch_kernels.py``
+    jax = None
+
+
+def _img(seed, h=64, w=256):
+    return np.random.default_rng(seed).uniform(0, 255, (h, w)).astype(
+        np.float32)
+
+
+def _t(a, device="cpu"):
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+# ---- B1 / B2: pyramid -------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(64, 256), (61, 93)])
+def test_halfsample_plain_matches_reference(shape):
+    img = _img(1, *shape)
+    ours = pyramid_kernel.halfsample_plain(_t(img)).numpy()
+    # summation order of the 2x2 mean may differ by one ulp of 255
+    np.testing.assert_allclose(
+        ours, np.asarray(jpyramid.halfsample(jnp.asarray(img))), atol=3e-5)
+    if shape[0] % 16 == 0:
+        np.testing.assert_allclose(
+            ours, np.asarray(pallas_pyr.halfsample(jnp.asarray(img),
+                                                   interpret=INTERPRET)),
+            atol=3e-5)
+
+
+@pytest.mark.parametrize("shape", [(64, 256), (7, 5)])
+def test_gradients_plain_matches_reference(shape):
+    img = _img(2, *shape)
+    gx, gy = pyramid_kernel.gradients_plain(_t(img))
+    for ours, ref in zip((gx, gy), jpyramid.gradients(jnp.asarray(img))):
+        np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+    for ours, ref in zip((gx, gy), pallas_pyr.gradients(
+            jnp.asarray(img), interpret=INTERPRET)):
+        np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+
+
+# ---- B3: patch sampling -----------------------------------------------------
+
+def _border_centres(h, w, n, seed):
+    """Centres within 2 px of every border and beyond it (W1)."""
+    rng = np.random.default_rng(seed)
+    u = rng.uniform(-3.0, w + 2.0, n)
+    v = rng.uniform(-3.0, h + 2.0, n)
+    side = rng.integers(0, 4, n)
+    u = np.where(side == 0, rng.uniform(-3.0, 2.0, n), u)
+    u = np.where(side == 1, rng.uniform(w - 3.0, w + 2.0, n), u)
+    v = np.where(side == 2, rng.uniform(-3.0, 2.0, n), v)
+    v = np.where(side == 3, rng.uniform(h - 3.0, h + 2.0, n), v)
+    return np.stack([u, v], -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("P", [4, 8])
+def test_sample_patches_plain_matches_interp_at_borders(P):
+    img = _img(3)
+    uv = _border_centres(64, 256, 96, seed=P)
+    ours = align_kernel.sample_patches_plain(_t(img), _t(uv), P).numpy()
+    ref = np.asarray(jinterp.sample_patch(jnp.asarray(img), jnp.asarray(uv),
+                                          P, method="gather"))
+    # the same tap formula on both sides; only XLA's fusion may round a
+    # product differently
+    np.testing.assert_allclose(ours, ref, atol=1e-4)
+
+
+@pytest.mark.parametrize("P", [4, 8])
+def test_sample_patches_plain_matches_pallas_interior(P):
+    """At interior centres the Pallas centre-clamp rule agrees with the
+    per-tap rule the port follows."""
+    rng = np.random.default_rng(4)
+    img = _img(4)
+    uv = np.stack([rng.uniform(8, 248, 32), rng.uniform(8, 56, 32)],
+                  -1).astype(np.float32)
+    ours = align_kernel.sample_patches_plain(_t(img), _t(uv), P).numpy()
+    ref = np.asarray(pallas_align.sample_patches(
+        jnp.asarray(img), jnp.asarray(uv), P, interpret=INTERPRET))
+    # the Pallas blend uses four products per tap instead of two lerps
+    np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=2e-3)
+
+
+# ---- B4: fused Gauss-Newton accumulation ------------------------------------
+
+def _gn_inputs(seed, N=48, P=4):
+    rng = np.random.default_rng(seed)
+    img = _img(seed)
+    uv = np.stack([rng.uniform(8, 248, N), rng.uniform(8, 56, N)],
+                  -1).astype(np.float32)
+    tmpl = rng.uniform(0, 255, (N, P * P)).astype(np.float32)
+    jac = rng.normal(0, 1, (N, P * P, 6)).astype(np.float32)
+    return img, uv, tmpl, jac
+
+
+def test_gn_accumulate_plain_matches_pallas():
+    """Per-feature weight and (a, b) = (1.3, −7), the Pallas signature."""
+    P, k, a_il, b_il = 4, 8.0, 1.3, -7.0
+    img, uv, tmpl, jac = _gn_inputs(5)
+    w = (np.random.default_rng(6).uniform(size=48) > 0.25).astype(np.float32)
+    H, g, cost, n_eff, _ = align_kernel.gn_accumulate_plain(
+        _t(img), _t(uv), _t(tmpl), _t(jac), _t(w), P, k,
+        torch.tensor([a_il, b_il]))
+    jH, jg, jcost, jn = pallas_align.gn_accumulate(
+        jnp.asarray(img), jnp.asarray(uv), jnp.asarray(tmpl),
+        jnp.asarray(jac), jnp.asarray(w), P, k, a_il=a_il, b_il=b_il,
+        interpret=INTERPRET)
+    # float32 sums of 768 terms in two different orders
+    np.testing.assert_allclose(H.numpy(), np.asarray(jH), rtol=2e-4, atol=5e-3)
+    np.testing.assert_allclose(g.numpy(), np.asarray(jg), rtol=2e-4, atol=5e-2)
+    np.testing.assert_allclose(float(cost), float(jcost), rtol=1e-4)
+    # Pallas counts features, the port counts pixels (Σ of the (N,P²) mask)
+    assert float(n_eff) == P * P * float(jn)
+
+
+def _gn_oracle(img, uv, tmpl, jac, mask, P, k, a_il, b_il):
+    cur = np.asarray(jinterp.sample_patch(jnp.asarray(img), jnp.asarray(uv),
+                                          P, method="gather"), np.float64)
+    e = cur - (a_il * tmpl.astype(np.float64) + b_il)
+    a = np.abs(e)
+    w = np.where(a <= k, 1.0, k / np.maximum(a, 1e-6)) * mask
+    J = jac.astype(np.float64)
+    return (np.einsum("npi,np,npj->ij", J, w, J),
+            np.einsum("npi,np,np->i", J, w, e), np.sum(w * e * e),
+            np.sum(mask), np.sum((a < k) * mask))
+
+
+def _pixel_mask(seed, N=48, P=4):
+    return (np.random.default_rng(seed).uniform(size=(N, P * P))
+            > 0.3).astype(np.float32)
+
+
+def test_gn_accumulate_plain_matches_f64_oracle():
+    """Per-pixel mask, as the refresh pass of align passes it, including
+    the inlier count."""
+    P, k, a_il, b_il = 4, 8.0, 0.9, 4.0
+    img, uv, tmpl, jac = _gn_inputs(7)
+    # templates near the samples, so that the Huber threshold splits them
+    cur = np.asarray(jinterp.sample_patch(jnp.asarray(img), jnp.asarray(uv),
+                                          P, method="gather"))
+    tmpl = ((cur - b_il) / a_il + np.random.default_rng(8).normal(
+        0, 8, cur.shape)).astype(np.float32)
+    mask = _pixel_mask(9)
+    out = align_kernel.gn_accumulate_plain(
+        _t(img), _t(uv), _t(tmpl), _t(jac), _t(mask), P, k,
+        torch.tensor([a_il, b_il]))
+    H_o, g_o, cost_o, n_o, inl_o = _gn_oracle(img, uv, tmpl, jac, mask, P,
+                                              k, a_il, b_il)
+    np.testing.assert_allclose(out[0].numpy(), H_o, rtol=2e-4, atol=5e-3)
+    np.testing.assert_allclose(out[1].numpy(), g_o, rtol=2e-4, atol=5e-2)
+    np.testing.assert_allclose(float(out[2]), cost_o, rtol=1e-4)
+    assert float(out[3]) == n_o
+    assert float(out[4]) == inl_o
+    assert 0 < inl_o < n_o
+
+
+def test_kernel_wrappers_raise_off_cpu_and_cuda():
+    """No silent fallback: a tensor that is neither on the CPU nor on a
+    CUDA device (or a mix of devices) raises."""
+    img = torch.empty((8, 8), device="meta")
+    uv = torch.empty((4, 2), device="meta")
+    with pytest.raises(ValueError):
+        align_kernel.sample_patches(img, uv, 4)
+    with pytest.raises(ValueError):
+        pyramid_kernel.halfsample(img)
+    with pytest.raises(ValueError):
+        align_kernel.sample_patches(torch.zeros(8, 8), uv, 4)
+
+
+# ---- CUDA kernels against their plain versions ------------------------------
+
+@pytest.mark.cuda
+def test_cuda_pyramid_kernels(cuda_device):
+    img = _t(_img(10, 480, 752), cuda_device)
+    before = dict(pyramid_kernel.LAUNCHES)
+    half = pyramid_kernel.halfsample(img)
+    gx, gy = pyramid_kernel.gradients(img)
+    torch.cuda.synchronize()
+    assert pyramid_kernel.LAUNCHES["halfsample"] == before["halfsample"] + 1
+    assert pyramid_kernel.LAUNCHES["gradients"] == before["gradients"] + 1
+    # same additions in the same order, no fused multiply-add: exact
+    torch.testing.assert_close(half, pyramid_kernel.halfsample_plain(img),
+                               rtol=0, atol=0)
+    pgx, pgy = pyramid_kernel.gradients_plain(img)
+    torch.testing.assert_close(gx, pgx, rtol=0, atol=0)
+    torch.testing.assert_close(gy, pgy, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [4, 8])
+def test_cuda_sample_patches(cuda_device, P):
+    img = _t(_img(11, 480, 752), cuda_device)
+    uv = _t(np.concatenate([_border_centres(480, 752, 96, seed=P),
+                            _border_centres(480, 752, 96, seed=P + 1) * 0.5
+                            + 100.0]), cuda_device)
+    ours = align_kernel.sample_patches(img, uv, P)
+    torch.testing.assert_close(
+        ours, align_kernel.sample_patches_plain(img, uv, P),
+        rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_gn_accumulate(cuda_device):
+    P, k = 4, 8.0
+    img, uv, tmpl, jac = _gn_inputs(12, N=192)
+    args = [_t(a, cuda_device) for a in (img, uv, tmpl, jac,
+                                         _pixel_mask(13, N=192))]
+    ab = torch.tensor([1.3, -7.0], device=cuda_device)
+    ours = align_kernel.gn_accumulate(*args, P, k, ab)
+    plain = align_kernel.gn_accumulate_plain(*args, P, k, ab)
+    # float32 sums of 3,072 terms in two different orders
+    torch.testing.assert_close(ours[0], plain[0], rtol=1e-4, atol=1e-2)
+    torch.testing.assert_close(ours[1], plain[1], rtol=1e-4, atol=1e-1)
+    torch.testing.assert_close(ours[2], plain[2], rtol=1e-4, atol=0)
+    torch.testing.assert_close(ours[3:], plain[3:], rtol=0, atol=0)
+    again = align_kernel.gn_accumulate(*args, P, k, ab)
+    for a, b in zip(ours, again):           # no atomics: bit for bit
+        assert torch.equal(a, b)
