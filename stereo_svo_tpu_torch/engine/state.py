@@ -83,7 +83,9 @@ class SlamState(NamedTuple):
 
 
 class FrameOut(NamedTuple):
-    """Per-frame output + structured metrics (same fields as the reference)."""
+    """Per-frame output + structured metrics: the reference's fields, then
+    ``n_warped``, the (feature, level) pairs KLT tracked on affine-warped
+    templates (0 without ``klt_affine_warp``)."""
     T_wc: torch.Tensor
     tracking_ok: torch.Tensor
     kf_inserted: torch.Tensor
@@ -97,6 +99,7 @@ class FrameOut(NamedTuple):
     n_seed_deaths: torch.Tensor
     n_epi_recovered: torch.Tensor
     ba_diag: torch.Tensor
+    n_warped: torch.Tensor
 
 
 def init_state(cfg: SvoConfig, device="cpu") -> SlamState:

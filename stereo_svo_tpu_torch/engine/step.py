@@ -1,10 +1,11 @@
 """The per-frame SVO state machine — port of ``stereo_svo_tpu/engine/step.py``
-(without window BA and online loop closure, which raise in ``make_step``).
+(without online loop closure, which raises in ``make_step``).
 
 One frame: pyramid (kernels B1, B2) → relocalisation scoring → coarse-to-fine
-alignment (B3, B4) → KLT (B3) → stereo re-measurement (B3) → pose refinement
-→ depth filters → keyframe decision → on keyframe frames ``keyframe.insert``
-→ template rebuild (B3).
+alignment (B3, B4) → KLT (B3), optionally on affine-warped templates → stereo
+re-measurement (B3) → pose refinement → depth filters, with the epipolar
+search (B3) for lost seeds when ``epi_samples > 0`` → keyframe decision → on
+keyframe frames ``keyframe.insert`` and window BA → template rebuild (B3).
 
 Control flow. The reference keeps every branch on the device with
 ``lax.cond``; here they are host ``if``s:
@@ -13,7 +14,8 @@ Control flow. The reference keeps every branch on the device with
 * the rotated relocalisation variants: gated by the previous frame's
   ``tracking_ok``, which the host already holds;
 * the keyframe branch: one ``.tolist()`` on (need_kf, ok) per tracked
-  frame — the step's only host sync.
+  frame — the step's only host sync. Window BA's acceptance stays on the
+  device (``torch.where``), so a keyframe frame costs no more syncs.
 
 ``fori_loop``s with static trip counts are Python loops. No tensor of the
 state is updated in place: each phase returns a new ``SlamState``, as in
@@ -26,13 +28,14 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..backend import ba as ba_mod
 from ..backend import loop_closure
 from ..config import SvoConfig
 from ..frontend import keyframe, pose_refine
 from ..geometry import camera as cam_mod
 from ..geometry import se3
 from ..ops import align as align_ops
-from ..ops import depth_filter, klt as klt_ops, pyramid, stereo_match
+from ..ops import depth_filter, klt as klt_ops, pyramid, solve, stereo_match
 from .state import (STATUS_DEAD, STATUS_LANDMARK, STATUS_SEED, FrameOut,
                     SlamState)
 
@@ -58,6 +61,62 @@ def _masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     idx = torch.clamp((n - 1) // 2, 0, x.shape[0] - 1)
     # all-false mask (fully lost frame): a benign positive depth, not inf
     return torch.where(n > 0, _index0(s, idx), torch.ones_like(s[0]))
+
+
+def run_window_ba(cfg: SvoConfig, st: SlamState) -> SlamState:
+    """Window stereo BA over the keyframe ring + converged landmarks,
+    written back into the anchor parameterisation (seeds keep their
+    filters). Accepted on the device only if the cost dropped and the
+    newest keyframe stays within the trust region (or, with
+    ``ba_trust_clamp``, as a partial step scaled to it)."""
+    cam = cfg.camera
+    X = world_points(cfg, st)
+    X_mask = st.status == STATUS_LANDMARK
+    kf_T_wk, X_new, stats = ba_mod.bundle_adjust(
+        cam, cfg, st.kf_T_wk, st.kf_valid, X, X_mask,
+        st.obs_uv, st.obs_mask, st.obs_disp, st.obs_dmask,
+        obs_sig=st.obs_sig, kf_stamp=st.kf_stamp)
+
+    T_last = _index0(st.kf_T_wk, st.last_kf)
+    dr, dt = se3.distance(_index0(kf_T_wk, st.last_kf), T_last)
+    if cfg.ba_trust_clamp:
+        # a proposal beyond the trust region applies as a geodesic partial
+        # step scaled to the trust radius (of the newest keyframe, as the
+        # reference)
+        s = torch.clamp(torch.minimum(
+            cfg.ba_trust_t / torch.clamp(dt, min=1e-9),
+            cfg.ba_trust_r / torch.clamp(dr, min=1e-9)), max=1.0)
+        kf_T_wk = se3.compose(se3.exp(s * se3.log(se3.compose(
+            kf_T_wk, se3.inverse(st.kf_T_wk)))), st.kf_T_wk)
+        X_new = X + s * (X_new - X)
+        ok = stats.cost_final < stats.cost_initial
+    else:
+        ok = ((stats.cost_final < stats.cost_initial)
+              & (dt < cfg.ba_trust_t) & (dr < cfg.ba_trust_r))
+    # signed forward component of the newest keyframe's proposed move, in
+    # its own camera frame
+    delta_c = se3.transform(se3.inverse(T_last), se3.translation(
+        _index0(kf_T_wk, st.last_kf)))
+    ba_diag = torch.stack([dt, dr, delta_c[2], stats.cost_initial,
+                           stats.cost_final, ok.to(torch.float32),
+                           stats.n_obs.to(torch.float32)])
+    kf_T_wk = torch.where(ok, kf_T_wk, st.kf_T_wk)
+    X_new = torch.where(ok, X_new, X)
+
+    # fold the refined point back along the anchor bearing (the anchor
+    # pixel kf_uv is the feature's photometric identity and stays put)
+    x_k = se3.transform(se3.inverse(kf_T_wk)[st.kf_id], X_new)
+    z = x_k[..., 2]
+    mu = torch.where(X_mask & (z > 0.1), 1.0 / torch.clamp(z, min=1e-3),
+                     st.mu)
+    # refresh the memory-bank poses of window keyframes that still own
+    # their slot (its stamp is the keyframe's creation stamp)
+    M = st.mem_T_wk.shape[0]
+    owns = st.kf_valid & (st.mem_stamp[st.kf_mem] == st.kf_stamp)
+    dst = torch.where(owns, st.kf_mem, torch.full_like(st.kf_mem, M))
+    mem_T = keyframe._put_drop(st.mem_T_wk, dst.long(), kf_T_wk)
+    return st._replace(kf_T_wk=kf_T_wk, mu=mu, mem_T_wk=mem_T,
+                       ba_diag=ba_diag)
 
 
 def _rebuild_template(cfg: SvoConfig, state: SlamState, pyr_l, gxs, gys,
@@ -88,6 +147,7 @@ class TrackCtx(NamedTuple):
     refine_rms_px: torch.Tensor
     n_seed_deaths: torch.Tensor
     n_epi_recovered: torch.Tensor
+    n_warped: torch.Tensor
     tmpl_z_obs: torch.Tensor
     tmpl_z_ok: torch.Tensor
 
@@ -129,7 +189,8 @@ def make_phases(cfg: SvoConfig):
             align_cost=z, align_inlier_frac=z + 1.0, refine_rms_px=z,
             median_depth=_masked_median(
                 1.0 / torch.clamp(st.mu, min=1e-4), st.status > 0),
-            n_seed_deaths=zi, n_epi_recovered=zi, ba_diag=st.ba_diag)
+            n_seed_deaths=zi, n_epi_recovered=zi, ba_diag=st.ba_diag,
+            n_warped=zi)
         return st, out
 
     def track_phase(st: SlamState, pyr_l, gxs, gys, img_r,
@@ -161,9 +222,21 @@ def make_phases(cfg: SvoConfig):
         in_img = front & cam_mod.in_bounds(cam, uv_pred,
                                            margin=cfg.klt_patch + 2)
         klt_mask = active & in_img
-        uv_ref, klt_ok, _ = klt_ops.track(
+        A_inv = None
+        if cfg.klt_affine_warp:
+            # pose-predicted affine template warp; degenerate or strongly
+            # shrinking warps fall back to the identity
+            z_ref = 1.0 / torch.clamp(st.mu, min=1e-4)
+            T_ck_pred = se3.compose(T_cw_pred[None], st.kf_T_wk[st.kf_id])
+            A = cam_mod.affine_warp_matrix(cam, st.kf_uv, z_ref, T_ck_pred)
+            det = A[:, 0, 0] * A[:, 1, 1] - A[:, 0, 1] * A[:, 1, 0]
+            A = torch.where((det > 0.2)[:, None, None], A,
+                            torch.eye(2, dtype=A.dtype, device=A.device))
+            A_inv = solve.inv2x2(A)
+        uv_ref, klt_ok, _, n_warped = klt_ops.track(
             pyr_l, st.klt_tmpl._replace(mask=st.klt_tmpl.mask & klt_mask),
-            cfg, uv_pred, edge_dir=st.feat_dir, is_edgelet=~st.feat_corner)
+            cfg, uv_pred, edge_dir=st.feat_dir, is_edgelet=~st.feat_corner,
+            A_inv=A_inv)
         tracked = klt_mask & klt_ok
 
         # --- 3. per-frame stereo disparity at the tracked positions ---
@@ -207,9 +280,29 @@ def make_phases(cfg: SvoConfig):
         # --- 5. recursive depth-filter updates ---
         T_ck = se3.compose(T_cw[None], st.kf_T_wk[st.kf_id])   # (N,3,4)
         seeds = ok & (status == STATUS_SEED) & inliers
+        obs_uv_df, px_scale = feat_uv, obs_sigma
+        n_epi = torch.zeros((), dtype=_I32, device=status.device)
+        if cfg.epi_samples > 0:
+            # seeds KLT lost this frame are still measured by a 1-D ZNCC
+            # search along their epipolar segment; the hit feeds the depth
+            # filter only, never the tracked position
+            lv_e = cfg.epi_level
+            lost_seed = (ok & (status == STATUS_SEED)
+                         & ~(tracked & inliers) & st.klt_tmpl.mask)
+            uv_epi, epi_ok, _ = depth_filter.epipolar_search(
+                cam, cfg, T_ck, st.kf_uv, st.mu, st.sigma2,
+                st.klt_tmpl.patches[lv_e], pyr_l[lv_e], lost_seed,
+                level=lv_e)
+            recovered = lost_seed & epi_ok
+            n_epi = recovered.sum().to(_I32)
+            seeds = seeds | recovered
+            obs_uv_df = torch.where(recovered[:, None], uv_epi, feat_uv)
+            px_scale = torch.where(
+                recovered, torch.clamp(obs_sigma, min=float(2 ** lv_e)),
+                obs_sigma)
         upd = depth_filter.observe_and_update(
-            cam, cfg, T_ck, st.kf_uv, feat_uv, st.mu, st.sigma2, st.a_beta,
-            st.b_beta, st.z_range, seeds, px_scale=obs_sigma)
+            cam, cfg, T_ck, st.kf_uv, obs_uv_df, st.mu, st.sigma2,
+            st.a_beta, st.b_beta, st.z_range, seeds, px_scale=px_scale)
         n_upd = st.n_upd + upd.updated.to(_I32)
         if cfg.stereo_refresh_window > 0:
             refresh_status = (status > 0) if cfg.stereo_refresh_landmarks \
@@ -253,19 +346,21 @@ def make_phases(cfg: SvoConfig):
         else:
             tmpl_z_obs = torch.zeros_like(st.mu)
             tmpl_z_ok = torch.zeros_like(tracked)
-        zi = torch.zeros((), dtype=_I32, device=status.device)
         ctx = TrackCtx(
             T_cw=T_cw, ok=ok, need_kf=need_kf, n_inl=n_inl,
             med_depth=med_depth, align_cost=align_stats["align_cost"],
             align_inlier_frac=align_stats["align_inlier_frac"],
             refine_rms_px=refine_stats["refine_rms_px"],
-            n_seed_deaths=n_seed_deaths, n_epi_recovered=zi,
-            tmpl_z_obs=tmpl_z_obs, tmpl_z_ok=tmpl_z_ok)
+            n_seed_deaths=n_seed_deaths, n_epi_recovered=n_epi,
+            n_warped=n_warped, tmpl_z_obs=tmpl_z_obs, tmpl_z_ok=tmpl_z_ok)
         return st, ctx
 
     def kf_phase(st: SlamState, pyr_l, gxs, gys, img_r,
                  T_cw: torch.Tensor) -> SlamState:
-        return keyframe.insert(cfg, st, pyr_l, gxs, gys, img_r, T_cw)
+        st = keyframe.insert(cfg, st, pyr_l, gxs, gys, img_r, T_cw)
+        if cfg.use_ba:
+            st = run_window_ba(cfg, st)
+        return st
 
     def post_phase(st: SlamState, pyr_l, gxs, gys, ctx: TrackCtx
                    ) -> Tuple[SlamState, FrameOut]:
@@ -289,7 +384,8 @@ def make_phases(cfg: SvoConfig):
             align_inlier_frac=ctx.align_inlier_frac,
             refine_rms_px=ctx.refine_rms_px, median_depth=ctx.med_depth,
             n_seed_deaths=ctx.n_seed_deaths,
-            n_epi_recovered=ctx.n_epi_recovered, ba_diag=st.ba_diag)
+            n_epi_recovered=ctx.n_epi_recovered, ba_diag=st.ba_diag,
+            n_warped=ctx.n_warped)
         return st, out
 
     return boot, track_phase, kf_phase, post_phase
@@ -297,21 +393,12 @@ def make_phases(cfg: SvoConfig):
 
 def check_supported(cfg: SvoConfig) -> None:
     """Raise NotImplementedError for a knob this port does not carry yet,
-    naming the ROADMAP item that will port it."""
-    unported = [
-        (cfg.use_ba, "use_ba=True: window BA is ROADMAP item A11"),
-        (cfg.online_loop_every > 0,
-         "online_loop_every>0: online loop closure is ROADMAP item A16"),
-        (cfg.epi_samples > 0,
-         "epi_samples>0: the epipolar search is ROADMAP item A14"),
-        (cfg.klt_affine_warp,
-         "klt_affine_warp: the affine KLT template is ROADMAP item A14"),
-        (cfg.dtype != "float32",
-         f"dtype={cfg.dtype!r}: bfloat16 is ROADMAP item A14"),
-    ]
-    for bad, why in unported:
-        if bad:
-            raise NotImplementedError(why)
+    naming the ROADMAP item that will port it. ``dtype`` picks the matmul
+    dtype of the reference's TPU-only MXU sampler; the gather sampler, which
+    the reference runs off the TPU and the port follows, ignores it."""
+    if cfg.online_loop_every > 0:
+        raise NotImplementedError(
+            "online_loop_every>0: online loop closure is ROADMAP item A16")
 
 
 def make_step(cfg: SvoConfig):
@@ -346,5 +433,5 @@ def make_step(cfg: SvoConfig):
     return step
 
 
-__all__ = ["make_step", "make_phases", "world_points", "HostFlags",
-           "host_flags", "check_supported"]
+__all__ = ["make_step", "make_phases", "run_window_ba", "world_points",
+           "HostFlags", "host_flags", "check_supported"]

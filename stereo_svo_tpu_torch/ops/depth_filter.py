@@ -1,18 +1,20 @@
 """Batched recursive depth filters (Gaussian × Beta inverse-depth model) —
-port of ``stereo_svo_tpu/ops/depth_filter.py`` (``epipolar_search`` is not
-ported yet). Every update is one masked elementwise pass over all N seeds.
+port of ``stereo_svo_tpu/ops/depth_filter.py``. Every update is one masked
+elementwise pass over all N seeds; the epipolar search samples its N·S
+probe patches with kernel B3 in one launch.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from ..config import CameraConfig, SvoConfig
 from ..geometry import camera as cam_mod
 from ..geometry import se3, triangulate
+from . import interp
 
 
 class SeedUpdate(NamedTuple):
@@ -160,6 +162,74 @@ def stereo_observe_and_update(cam: CameraConfig, cfg: SvoConfig,
     apply_mask = active & disp_ok & (z_c > 0.1) & (z_k > 0.05)
     return _floor_sigma(cfg, update(mu, sigma2, a, b, x_obs, tau_inv ** 2,
                                     z_range, apply_mask))
+
+
+def epipolar_search(cam: CameraConfig, cfg: SvoConfig, T_ck: torch.Tensor,
+                    kf_uv: torch.Tensor, mu: torch.Tensor,
+                    sigma2: torch.Tensor, tmpl_patch: torch.Tensor,
+                    img: torch.Tensor, active: torch.Tensor, level: int = 0
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched 1-D epipolar search for seeds the tracker lost this frame.
+
+    The posterior's μ±3σ inverse-depth interval projects to a segment in
+    the current image; ``cfg.epi_samples`` ZNCC probes cover it (one B3
+    launch for all N·S patches) and a parabola over the peak gives the
+    sub-sample position.
+
+    T_ck: (N,3,4) owner-KF → current poses; kf_uv: (N,2) level-0 anchors;
+    tmpl_patch: (N,P²) reference patches at ``level``; img: current image
+    at ``level``; active: (N,) seeds to search.
+    Returns (uv (N,2) level-0 matches, ok (N,), best ZNCC (N,)).
+    """
+    N = kf_uv.shape[0]
+    S = cfg.epi_samples
+    P = int(round(tmpl_patch.shape[-1] ** 0.5))
+    scale = 1.0 / (2 ** level)
+
+    sd = torch.sqrt(torch.clamp(sigma2, min=1e-12))
+    x_hi = mu + 3.0 * sd                       # nearest plausible
+    x_lo = torch.clamp(mu - 3.0 * sd, min=1e-4)  # farthest plausible
+    p_near = cam_mod.backproject(cam, kf_uv, 1.0 / x_hi)
+    p_far = cam_mod.backproject(cam, kf_uv, 1.0 / x_lo)
+    uv_a, front_a = cam_mod.project(cam, se3.transform(T_ck, p_near))
+    uv_b, front_b = cam_mod.project(cam, se3.transform(T_ck, p_far))
+
+    t = torch.linspace(0.0, 1.0, S, dtype=kf_uv.dtype, device=kf_uv.device)
+    uv_s = uv_a[:, None] + t[None, :, None] * (uv_b - uv_a)[:, None]
+    cur = interp.sample_patch(img, uv_s.reshape(N * S, 2) * scale,
+                              P).reshape(N, S, P * P)
+
+    def znorm(p):
+        p = p - p.mean(-1, keepdim=True)
+        return p / torch.clamp(torch.sqrt(torch.sum(p * p, -1, keepdim=True)),
+                               min=1e-6)
+
+    scores = torch.einsum("np,nsp->ns", znorm(tmpl_patch), znorm(cur))
+    best = torch.argmax(scores, 1)
+
+    def at(i):
+        return torch.gather(scores, 1, i[:, None])[:, 0]
+
+    s_best = at(best)
+    s0 = at(torch.clamp(best - 1, 0, S - 1))
+    s2 = at(torch.clamp(best + 1, 0, S - 1))
+    denom = s0 - 2.0 * s_best + s2
+    big = torch.abs(denom) > 1e-6
+    off = torch.where(big, 0.5 * (s0 - s2) / torch.where(
+        big, denom, torch.ones_like(denom)), torch.zeros_like(denom))
+    off = torch.clamp(off, -0.5, 0.5)
+    tt = (best.to(off.dtype) + off) / (S - 1)
+    uv = uv_a + tt[:, None] * (uv_b - uv_a)
+
+    seg = _norm(uv_b - uv_a)
+    spacing_ok = seg * scale / (S - 1) <= 0.75 * P  # probes overlap the peak
+    interior = (best > 0) & (best < S - 1)
+    in_img = cam_mod.in_bounds(cam, uv, margin=P * (2 ** level))
+    # prominence gate: a flat correlation ridge localizes arbitrarily
+    prominent = s_best - 0.5 * (s0 + s2) > 0.01
+    ok = (active & front_a & front_b & interior & in_img & spacing_ok
+          & prominent & (s_best > cfg.epi_min_zncc))
+    return uv, ok, s_best
 
 
 def converged(cfg: SvoConfig, mu: torch.Tensor, sigma2: torch.Tensor

@@ -13,8 +13,10 @@ from .kernels import align_kernel
 
 
 def _taps(img: torch.Tensor, uv: torch.Tensor):
-    """Clamped tap indices and fractions of ``interp.bilinear``."""
-    H, W = img.shape
+    """Clamped taps and fractions of ``interp.bilinear``. ``img`` is (H,W),
+    or a batch (N,H,W) with ``uv`` (N,…,2): entry n samples image n only
+    (the reference's ``vmap`` over per-feature images)."""
+    H, W = img.shape[-2:]
     u = torch.clamp(uv[..., 0], 0.0, W - 1.000001)
     v = torch.clamp(uv[..., 1], 0.0, H - 1.000001)
     u0 = torch.floor(u)
@@ -27,7 +29,16 @@ def _taps(img: torch.Tensor, uv: torch.Tensor):
     iv0 = v0.long().clamp(0, H - 1)
     iu1 = torch.clamp(iu0 + 1, max=W - 1)
     iv1 = torch.clamp(iv0 + 1, max=H - 1)
-    return (img[iv0, iu0], img[iv0, iu1], img[iv1, iu0], img[iv1, iu1],
+    if img.dim() == 2:
+        return (img[iv0, iu0], img[iv0, iu1], img[iv1, iu0], img[iv1, iu1],
+                du, dv)
+    flat = img.reshape(img.shape[0], H * W)
+
+    def tap(iv, iu):
+        idx = (iv * W + iu).reshape(img.shape[0], -1)
+        return torch.gather(flat, 1, idx).reshape(iv.shape)
+
+    return (tap(iv0, iu0), tap(iv0, iu1), tap(iv1, iu0), tap(iv1, iu1),
             du, dv)
 
 
@@ -41,7 +52,8 @@ def bilinear(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
 
 
 def bilinear_with_grad(img: torch.Tensor, uv: torch.Tensor):
-    """Sample value and the analytic gradient of the bilinear interpolant."""
+    """Sample value and the analytic gradient of the bilinear interpolant;
+    ``img`` (H,W) or a per-feature batch (N,H,W), as ``_taps``."""
     p00, p01, p10, p11, du, dv = _taps(img, uv)
     val = (p00 * (1 - du) * (1 - dv) + p01 * du * (1 - dv)
            + p10 * (1 - du) * dv + p11 * du * dv)

@@ -1,6 +1,4 @@
-"""Small closed-form solvers — port of ``stereo_svo_tpu/ops/solve.py``
-(``inv2x2`` and ``chol_solve_small``; ``inv3x3`` and ``cg_solve`` serve
-only BA and come with it).
+"""Small closed-form solvers — port of ``stereo_svo_tpu/ops/solve.py``.
 
 ``chol_solve_small`` keeps the reference's unrolled Cholesky rather than
 ``torch.linalg.cholesky``: the library call raises on a matrix that is not
@@ -22,6 +20,28 @@ def inv2x2(A: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     inv = torch.stack([torch.stack([d, -b], -1),
                        torch.stack([-c, a], -1)], -2)
     return inv / det[..., None, None]
+
+
+def inv3x3(A: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Batched adjugate 3x3 inverse: (…,3,3) → (…,3,3)."""
+    a00, a01, a02 = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    a10, a11, a12 = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    a20, a21, a22 = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    c00 = a11 * a22 - a12 * a21
+    c01 = a02 * a21 - a01 * a22
+    c02 = a01 * a12 - a02 * a11
+    c10 = a12 * a20 - a10 * a22
+    c11 = a00 * a22 - a02 * a20
+    c12 = a02 * a10 - a00 * a12
+    c20 = a10 * a21 - a11 * a20
+    c21 = a01 * a20 - a00 * a21
+    c22 = a00 * a11 - a01 * a10
+    det = a00 * c00 + a01 * c10 + a02 * c20
+    det = torch.where(torch.abs(det) > eps, det, torch.sign(det) * eps + eps)
+    adj = torch.stack([torch.stack([c00, c01, c02], -1),
+                       torch.stack([c10, c11, c12], -1),
+                       torch.stack([c20, c21, c22], -1)], -2)
+    return adj / det[..., None, None]
 
 
 def chol_solve_small(A: torch.Tensor, b: torch.Tensor,
@@ -54,3 +74,33 @@ def chol_solve_small(A: torch.Tensor, b: torch.Tensor,
             s = s - L[k][i] * x[k]
         x[i] = s / L[i][i]
     return torch.stack(x, -1)
+
+
+def cg_solve(A: torch.Tensor, b: torch.Tensor, iters: int = 25,
+             x0: torch.Tensor | None = None) -> torch.Tensor:
+    """Fixed-iteration Jacobi-preconditioned conjugate gradient for SPD A
+    (…,n,n), b (…,n). The matvecs are float32 products (TF32 stays off)."""
+    diag = torch.diagonal(A, dim1=-2, dim2=-1)
+    Minv = 1.0 / torch.clamp(torch.abs(diag), min=1e-12)
+
+    def mv(v):
+        return torch.einsum("...ij,...j->...i", A, v)
+
+    def safe(d):
+        return torch.where(torch.abs(d) > 1e-20, d, torch.full_like(d, 1e-20))
+
+    x = torch.zeros_like(b) if x0 is None else x0
+    r = b - mv(x)
+    z = Minv * r
+    p = z
+    rz = torch.sum(r * z, -1, keepdim=True)
+    for _ in range(iters):
+        Ap = mv(p)
+        alpha = rz / safe(torch.sum(p * Ap, -1, keepdim=True))
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = Minv * r
+        rz_new = torch.sum(r * z, -1, keepdim=True)
+        p = z + rz_new / safe(rz) * p
+        rz = rz_new
+    return x

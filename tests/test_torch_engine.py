@@ -2,10 +2,11 @@
 insertion on a JAX-captured state, one-frame steps from JAX states, and the
 slice as a whole on the same synthetic sequence.
 
-Configuration: the small camera of tests/test_engine.py with use_ba=False
-(window BA is not ported yet). End-to-end parity is judged by gates and
-short-horizon pose error, not bitwise trajectories: sub-LSB differences
-grow chaotically over a run (ROADMAP W7).
+Configuration: the small camera of tests/test_engine.py with the shipped
+defaults, window BA included (it runs at frame 13, the first keyframe after
+the bootstrap). End-to-end parity is judged by gates and short-horizon pose
+error, not bitwise trajectories: sub-LSB differences grow chaotically over a
+run (ROADMAP W7).
 """
 
 import jax
@@ -27,11 +28,15 @@ from stereo_svo_tpu_torch.eval import ate
 from stereo_svo_tpu_torch.frontend import keyframe
 from stereo_svo_tpu_torch.io import synthetic
 
+# one intra-op thread: the tier-1 run's parallel workers already fill the
+# cores, and oversubscribed torch threads slow every small op ~100×
+torch.set_num_threads(1)
+
 CAM_KW = dict(fx=240.0, fy=240.0, cx=188.0, cy=120.0, baseline=0.11,
               width=376, height=240)
 CFG_KW = dict(grid_rows=10, grid_cols=13, max_features=130, num_levels=3,
               align_levels=3, klt_levels=3, stereo_max_disp=64,
-              kf_min_tracked=40, border_margin=10, use_ba=False)
+              kf_min_tracked=40, border_margin=10)
 JCFG = JCfg(camera=JCam(**CAM_KW), **CFG_KW)
 CFG = SvoConfig(camera=CameraConfig(**CAM_KW), **CFG_KW)
 N_FRAMES = 16     # frame 13 is the first keyframe after the bootstrap
@@ -209,12 +214,124 @@ def test_slice_end_to_end_against_reference(reference_run):
 
 def test_runner_rejects_unported_knobs_and_missing_cuda():
     import dataclasses
-    for kw in (dict(use_ba=True), dict(online_loop_every=4),
-               dict(epi_samples=16), dict(klt_affine_warp=True),
-               dict(dtype="bfloat16")):
-        with pytest.raises(NotImplementedError):
-            runner.StereoSvo(dataclasses.replace(CFG, **kw))
-    runner.StereoSvo(dataclasses.replace(CFG, mem_retention="fifo"))
+
+    from stereo_svo_tpu_torch.config import kitti_config, stress_config
+    with pytest.raises(NotImplementedError):
+        runner.StereoSvo(dataclasses.replace(CFG, online_loop_every=4))
+    # every configuration the config module ships builds unchanged
+    for cfg in (SvoConfig(), kitti_config(), stress_config(),
+                SvoConfig(klt_affine_warp=True), SvoConfig(dtype="bfloat16")):
+        step.make_step(cfg)
+    for kw in (dict(mem_retention="fifo"), dict(epi_samples=16),
+               dict(klt_affine_warp=True), dict(dtype="bfloat16")):
+        runner.StereoSvo(dataclasses.replace(CFG, **kw))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             runner.StereoSvo(CFG, device="cuda")
+
+
+def test_bfloat16_knob_gives_the_float32_result(reference_run):
+    """``dtype`` only picks the reference's TPU-only MXU sampler dtype; the
+    gather sampler ignores it, so the port's result is the float32 one, bit
+    for bit (frame 13 runs the keyframe phase and BA)."""
+    import dataclasses
+    st = reference_run["states"][13]
+    l, r = (torch.from_numpy(np.array(reference_run[k][13]))
+            for k in ("lefts", "rights"))
+    outs = [step.make_step(dataclasses.replace(CFG, dtype=dt))(
+        state_mod.state_from_numpy(st), l, r)
+        for dt in ("float32", "bfloat16")]
+    (st32, out32, _), (st16, out16, _) = outs
+    assert bool(out32.kf_inserted)
+    for a, b in zip(out32, out16):
+        assert torch.equal(a, b)
+    for a, b in zip(st32, st16):
+        assert all(torch.equal(x, y) for x, y in zip(
+            a if isinstance(a, tuple) else (a,),
+            b if isinstance(b, tuple) else (b,)))
+
+
+@pytest.fixture(scope="module")
+def jax_window_ba():
+    return jax.jit(lambda s: jstep.run_window_ba(JCFG, s))
+
+
+def _inserted_state(reference_run, k=13):
+    """The JAX state after frame k's keyframe insertion, before its BA."""
+    st_np = reference_run["states"][k]
+    pyr = _pyramid(reference_run["lefts"][k])
+    T_cw = np.asarray(jse3.inverse(jnp.asarray(reference_run["outs"][k].T_wc)))
+    return _np(jax.jit(jkeyframe.insert, static_argnums=0)(
+        JCFG, jax.tree.map(jnp.asarray, st_np),
+        *(tuple(map(jnp.asarray, lv)) for lv in pyr),
+        jnp.asarray(reference_run["rights"][k]), jnp.asarray(T_cw)))
+
+
+def test_run_window_ba_on_reference_state(reference_run, jax_window_ba):
+    """Window BA on the JAX state right after frame 13's keyframe
+    insertion, field by field."""
+    st_np = _inserted_state(reference_run)
+    ref = _np(jax_window_ba(jax.tree.map(jnp.asarray, st_np)))
+    ours = state_mod.state_to_numpy(
+        step.run_window_ba(CFG, state_mod.state_from_numpy(st_np)))
+    assert ref.ba_diag[5] == 1.0 and ours["ba_diag"][5] == 1.0, "accepted"
+    assert ours["ba_diag"][6] == ref.ba_diag[6] > 100        # n_obs
+    # five float32 Gauss-Newton steps whose einsums contract in another
+    # order than XLA's: poses agree to ~1e-6 m, costs to 1e-4 relative
+    np.testing.assert_allclose(ours["kf_T_wk"], ref.kf_T_wk, atol=2e-5)
+    np.testing.assert_allclose(ours["mem_T_wk"], ref.mem_T_wk, atol=2e-5)
+    np.testing.assert_allclose(ours["ba_diag"][3:5], ref.ba_diag[3:5],
+                               rtol=1e-4)
+    np.testing.assert_allclose(ours["ba_diag"][:3], ref.ba_diag[:3],
+                               atol=2e-5)
+    np.testing.assert_allclose(ours["mu"], ref.mu, rtol=1e-4, atol=1e-6)
+    moved = np.abs(ref.mu - st_np.mu) > 0
+    assert moved.sum() > 10, "BA refined the landmarks"
+    for name in ("status", "kf_valid", "obs_mask", "mem_stamp"):
+        np.testing.assert_array_equal(ours[name], getattr(ref, name))
+
+
+def test_window_ba_guard_rejects_corrupted_observations(reference_run,
+                                                        jax_window_ba):
+    """Garbage observations must not move the keyframes (the divergence
+    guard), in the port as in the reference."""
+    st_np = _inserted_state(reference_run)
+    rng = np.random.default_rng(0)
+    bad = st_np._replace(obs_uv=rng.uniform(
+        0, CFG.camera.width, st_np.obs_uv.shape).astype(np.float32))
+    ref = _np(jax_window_ba(jax.tree.map(jnp.asarray, bad)))
+    ours = state_mod.state_to_numpy(
+        step.run_window_ba(CFG, state_mod.state_from_numpy(bad)))
+    # both solvers propose a metres-long jump and the trust region
+    # (ba_trust_t = 0.1 m) rejects it
+    assert ours["ba_diag"][5] == ref.ba_diag[5] == 0.0
+    assert ours["ba_diag"][0] > 1.0 and ref.ba_diag[0] > 1.0
+    np.testing.assert_allclose(ours["kf_T_wk"], st_np.kf_T_wk, atol=1e-5)
+    np.testing.assert_allclose(ref.kf_T_wk, st_np.kf_T_wk, atol=1e-5)
+
+
+def test_window_ba_trust_clamp_on_reference_state(reference_run):
+    """``ba_trust_clamp``: the corrupted-observation proposal is applied as
+    a partial step scaled to the trust radius of the newest keyframe (the
+    reference's rule, ROADMAP W8), in the port as in the reference."""
+    import dataclasses
+    jcfg = dataclasses.replace(JCFG, ba_trust_clamp=True)
+    cfg = dataclasses.replace(CFG, ba_trust_clamp=True)
+    st_np = _inserted_state(reference_run)
+    rng = np.random.default_rng(0)
+    bad = st_np._replace(obs_uv=rng.uniform(
+        0, CFG.camera.width, st_np.obs_uv.shape).astype(np.float32))
+    ref = _np(jax.jit(lambda s: jstep.run_window_ba(jcfg, s))(
+        jax.tree.map(jnp.asarray, bad)))
+    ours = state_mod.state_to_numpy(
+        step.run_window_ba(cfg, state_mod.state_from_numpy(bad)))
+    assert ours["ba_diag"][5] == ref.ba_diag[5] == 1.0   # cost dropped
+    # the newest keyframe's metres-long proposal shrinks to ~the trust
+    # radius (the twist is scaled, so the move is not exactly 0.1 m)
+    k = int(st_np.last_kf)
+    for T in (ours["kf_T_wk"], ref.kf_T_wk):
+        moved = np.linalg.norm(T[k, :, 3] - st_np.kf_T_wk[k, :, 3])
+        assert 0.05 < moved < 0.2, moved
+    # the proposals themselves differ by ~1e-3 relative (a metres-long
+    # Gauss-Newton step on garbage), and so do the clamped steps
+    np.testing.assert_allclose(ours["kf_T_wk"], ref.kf_T_wk, atol=2e-3)

@@ -229,15 +229,18 @@ def test_cuda_sample_patches(cuda_device, P):
 
 
 @pytest.mark.cuda
-def test_cuda_gn_accumulate(cuda_device):
+@pytest.mark.parametrize("N", [192, 240, 2048, 4096])
+def test_cuda_gn_accumulate(cuda_device, N):
+    """Main-path (192), KITTI (240) and stress (2048) widths: 12, 15 and
+    128 pass-1 blocks; 4096 runs past the 128-block cap (grid-stride)."""
     P, k = 4, 8.0
-    img, uv, tmpl, jac = _gn_inputs(12, N=192)
+    img, uv, tmpl, jac = _gn_inputs(12, N=N)
     args = [_t(a, cuda_device) for a in (img, uv, tmpl, jac,
-                                         _pixel_mask(13, N=192))]
+                                         _pixel_mask(13, N=N))]
     ab = torch.tensor([1.3, -7.0], device=cuda_device)
     ours = align_kernel.gn_accumulate(*args, P, k, ab)
     plain = align_kernel.gn_accumulate_plain(*args, P, k, ab)
-    # float32 sums of 3,072 terms in two different orders
+    # float32 sums of N·16 terms in two different orders
     torch.testing.assert_close(ours[0], plain[0], rtol=1e-4, atol=1e-2)
     torch.testing.assert_close(ours[1], plain[1], rtol=1e-4, atol=1e-1)
     torch.testing.assert_close(ours[2], plain[2], rtol=1e-4, atol=0)
@@ -245,3 +248,37 @@ def test_cuda_gn_accumulate(cuda_device):
     again = align_kernel.gn_accumulate(*args, P, k, ab)
     for a, b in zip(ours, again):           # no atomics: bit for bit
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(376, 1241), (188, 620), (94, 310),
+                                   (47, 155), (30, 47)])
+def test_cuda_pyramid_kernels_odd_shapes(cuda_device, shape):
+    """The KITTI pyramid (1241 wide, then 620, 310, 155; odd trailing
+    columns dropped) and the stress pyramid's level 4 (47×30): exact."""
+    img = _t(_img(14, *shape), cuda_device)
+    half = pyramid_kernel.halfsample(img)
+    assert half.shape == (shape[0] // 2, shape[1] // 2)
+    torch.testing.assert_close(half, pyramid_kernel.halfsample_plain(img),
+                               rtol=0, atol=0)
+    for ours, plain in zip(pyramid_kernel.gradients(img),
+                           pyramid_kernel.gradients_plain(img)):
+        torch.testing.assert_close(ours, plain, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,N,P", [
+    ((188, 620), 3840, 8),      # epipolar probes: 240 seeds × 16 samples
+    ((480, 752), 192, 16),      # oversized affine-KLT templates
+    ((376, 1241), 240, 8),      # KITTI: 240 features, KLT level 0
+    ((240, 376), 2048, 8)])     # stress: 2048 features, KLT level 1
+def test_cuda_sample_patches_new_shapes(cuda_device, shape, N, P):
+    h, w = shape
+    rng = np.random.default_rng(N + P)
+    uv = np.stack([rng.uniform(-3.0, w + 2.0, N), rng.uniform(-3.0, h + 2.0, N)],
+                  -1).astype(np.float32)
+    img = _t(_img(15, h, w), cuda_device)
+    uv = _t(uv, cuda_device)
+    torch.testing.assert_close(
+        align_kernel.sample_patches(img, uv, P),
+        align_kernel.sample_patches_plain(img, uv, P), rtol=0, atol=1e-4)

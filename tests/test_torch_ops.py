@@ -206,8 +206,8 @@ def test_klt_template_and_track(frames):
     gdir = np.asarray(frames["det"][4])
     levels1 = frames["pyrs"][1][0]
     tmpl = klt.KltTemplate(*(_t(np.asarray(a)) for a in ref))
-    u, ok, res = klt.track(tuple(map(_t, levels1)), tmpl, CFG, _t(uv_init),
-                           edge_dir=_t(gdir), is_edgelet=_t(~corner))
+    u, ok, res, _ = klt.track(tuple(map(_t, levels1)), tmpl, CFG, _t(uv_init),
+                              edge_dir=_t(gdir), is_edgelet=_t(~corner))
     ju, jok, jres = jklt.track(tuple(map(jnp.asarray, levels1)), ref, JCFG,
                                jnp.asarray(uv_init),
                                edge_dir=jnp.asarray(gdir),
