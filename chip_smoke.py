@@ -8,13 +8,27 @@ Phases, one result line each, in order:
      torch/CUDA versions, the TF32 flags;
   1. build: the CUDA kernels from csrc/, timed;
   2. kernels: each of B1-B4 against its plain PyTorch version on the card
-     at main-path shapes (752×480 pyramid, N=192 features), with errors and
-     median CUDA-event times over 60 runs; then at the other paths'
-     shapes: B1/B2 on every level of a 1241×376 (KITTI) and a 5-level
-     752×480 (stress) pyramid, exactly; B3 at the epipolar-search shape
-     (3,840 centres, P=8, 620×188), the affine-KLT big-template shape
-     (N=192, P=16) and the KLT shapes N=240 (KITTI) and N=2048 (stress),
-     P=8; B4 at N=240 (KITTI level 0) and N=2048 (stress level 1), P=4;
+     at every shape a shipped path gives it: B1/B2 exactly on every level
+     of the 752x480 (4 and 5 levels) and 1241x376 pyramids; B3 bit for bit
+     at N=192 (P=8 KLT, P=4 alignment, and the K=3 template launches that
+     sample a level's image, gx and gy together), at the epipolar-search
+     shape (3,840 centres, P=8, 620x188), the affine-KLT big templates
+     (N=192, P=16) and the KLT widths N=240 (KITTI) and N=2048 (stress);
+     B4 at N=192, 240 (KITTI) and 2048 (stress level 1), P=4, within 1e-4
+     relative with exact counts, bit-reproducible, one CUDA launch per
+     call, and unchanged after calls at another width. Each row gives:
+     ms and plain_ms (median CUDA-event pair around one call, 60 runs);
+     device_us (torch.profiler device time of the kernel's own CUDA
+     functions per call over 200 back-to-back calls, or an event pair
+     around them where the profiler shows none: device_method);
+     host_us (host clock over 200 back-to-back calls, no sync); bound_us
+     (the larger of bytes / 3.35 TB/s and float32 operations / 67 TFLOP/s
+     from the row's shapes, with bound_by); library_call, library_ms,
+     library_device_us, library_host_us and library_max_abs_err (one
+     PyTorch call computing the same function, timed alone as the kernel
+     is; none for B4, library_reason says why); and, after the
+     paths ran, launches_per_frame of the kernel on the path that gives
+     it the shape;
   3. main path: SvoConfig() as shipped (window BA on) over the 100-frame
      synthetic arc sequence (752×480, dt 0.08, seed 0) rendered on the
      card, through StereoSvo(cfg, device="cuda").new_image; ATE and
@@ -33,8 +47,9 @@ them just after, and fails unless every kernel launched; it counts host
 syncs on every frame of the run (CUDA sync debug mode) and fails unless
 the bootstrap frame has none and every other frame, keyframe frames with
 window BA and frames with epipolar recoveries included, has exactly one.
-Then the kernels JSON line (launches from phase 3), the nvidia-smi line,
-and last
+Then phase2_rows (every kernel row with its launches per frame), the
+kernels JSON line (each kernel's main-path row, launches from phase 3),
+the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero with no ok line.
 Extra detail (build log, per-frame times) goes to build/chip_smoke.json.
 """
@@ -54,7 +69,12 @@ N_FRAMES, DT, SEED = 100, 0.08, 0
 N_AFFINE_FRAMES = 50
 ATE_GATE_M, TRACK_GATE = 0.02, 0.99        # bench.py:54-55
 KITTI_ATE_FLOOR_M, KITTI_ATE_FRAC = 0.25, 0.015   # bench.py:529-536
-N_TIMED = 60                               # kernel timing repetitions
+N_TIMED = 60                               # event-pair timing repetitions
+N_BACK = 200                               # back-to-back calls (device_us,
+                                           # host_us)
+MEM_BYTES_PER_S = 3.35e12                  # H100 SXM HBM3
+F32_FLOPS_PER_S = 67e12                    # H100 SXM, float32, no tensor
+                                           # cores
 TPU_KERNELS = {                            # pl.pallas_call sites replaced
     "halfsample": "stereo_svo_tpu/ops/pallas/pyramid_kernel.py:37",
     "gradients": "stereo_svo_tpu/ops/pallas/pyramid_kernel.py:70",
@@ -65,6 +85,31 @@ SOURCES = {"halfsample": "stereo_svo_tpu_torch/csrc/pyramid.cu",
            "gradients": "stereo_svo_tpu_torch/csrc/pyramid.cu",
            "sample_patches": "stereo_svo_tpu_torch/csrc/align.cu",
            "gn_accumulate": "stereo_svo_tpu_torch/csrc/align.cu"}
+# the CUDA functions each wrapper launches (as torch.profiler names them);
+# gn_partial_kernel/gn_final_kernel are the two-launch B4 of earlier trees,
+# which compare_kernels.py times
+KERNEL_FUNCTIONS = {"halfsample": ("halfsample_kernel",),
+                    "gradients": ("gradients_kernel",),
+                    "sample_patches": ("sample_patch_kernel",),
+                    "gn_accumulate": ("gn_accumulate_kernel",
+                                      "gn_partial_kernel", "gn_final_kernel")}
+LIBRARY_CALLS = {
+    "halfsample": "torch.nn.functional.avg_pool2d(x, 2)",
+    "gradients": "torch.nn.functional.conv2d, both stencils as two output "
+                 "channels (compared on the interior)",
+    "sample_patches": "torch.nn.functional.grid_sample(bilinear, border, "
+                      "align_corners=True) on a grid built outside the "
+                      "timed region (compared at interior centres)",
+    "gn_accumulate": None,
+}
+NO_LIBRARY_CALL = ("no single PyTorch call computes the sample, the Huber "
+                   "weight and the normal equations together")
+
+
+ROW_SUMMARY = ("name", "shape", "use", "path", "launches_per_frame",
+               "max_abs_err", "ms", "plain_ms", "device_us", "host_us",
+               "bound_us", "bound_by", "library_ms", "library_device_us",
+               "library_host_us", "library_max_abs_err")
 
 
 class SmokeFailure(RuntimeError):
@@ -81,7 +126,9 @@ def require(cond: bool, what: str) -> None:
 
 
 def cuda_ms(fn, n: int = N_TIMED, warmup: int = 5) -> float:
-    """Median milliseconds of ``fn()`` over ``n`` runs, by CUDA events."""
+    """Median milliseconds of ``fn()`` over ``n`` runs, one CUDA-event pair
+    around each run at an idle queue: the host's cost to issue the call
+    plus the device's time."""
     import torch
     for _ in range(warmup):
         fn()
@@ -96,6 +143,86 @@ def cuda_ms(fn, n: int = N_TIMED, warmup: int = 5) -> float:
         pairs.append((a, b))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def device_us(fn, functions, n: int = N_BACK):
+    """Device µs per call of ``fn()`` spent in the CUDA functions named in
+    ``functions``: torch.profiler's key_averages over ``n`` back-to-back
+    calls, the mean time of each function's launches times its launches
+    per call (rounded: the profiler may drop a few records, never add
+    one), summed over the functions a call launches; with the launches
+    recorded per call. Where two profiles record no device time, an event
+    pair around ``n`` back-to-back calls
+    after a synchronised warm-up (launches per call then unknown).
+    Returns (µs, launches per call, method)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):               # the first profile may record nothing
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        per_function = [
+            (getattr(e, "self_device_time_total", 0.0), e.count)
+            for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and any(f in e.key for f in functions)]
+        if per_function and all(t > 0.0 for t, _ in per_function):
+            return (sum(t / c * max(1, round(c / n))
+                        for t, c in per_function),
+                    sum(c for _, c in per_function) / n, "profiler")
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) * 1e3 / n, None, "events"
+
+
+def host_us(fn, n: int = N_BACK) -> float:
+    """Host µs per call of ``fn()`` over ``n`` back-to-back calls with no
+    synchronisation: what the main path pays per call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def bound_us(nbytes: float, flops: float):
+    """The least time the card could take: bytes over the memory rate or
+    float32 operations over the peak rate, whichever is larger."""
+    t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e6, \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def footprint_pixels(h, w, uv, P) -> int:
+    """Distinct pixels the bilinear taps of all patches read (the per-tap
+    clamp of interp.bilinear): the input bytes B3/B4 need from this run's
+    centres."""
+    import torch
+    from stereo_svo_tpu_torch.ops import interp
+    pts = (uv.reshape(-1, 2)[:, None, :]
+           + interp.patch_coords(P, uv.dtype, uv.device)).reshape(-1, 2)
+    u = torch.clamp(pts[:, 0], 0.0, w - 1.000001)
+    v = torch.clamp(pts[:, 1], 0.0, h - 1.000001)
+    iu0 = torch.floor(u).long().clamp(0, w - 1)
+    iv0 = torch.floor(v).long().clamp(0, h - 1)
+    iu1 = torch.clamp(iu0 + 1, max=w - 1)
+    iv1 = torch.clamp(iv0 + 1, max=h - 1)
+    idx = torch.cat([iv0 * w + iu0, iv0 * w + iu1, iv1 * w + iu0,
+                     iv1 * w + iu1])
+    return int(torch.unique(idx).numel())
 
 
 def nvidia_smi_line() -> str:
@@ -116,11 +243,25 @@ def _max_err(a, b):
     return d, d / max(scale, 1e-30)
 
 
-def check_kernels(device, frame, kitti_frame, detail):
-    """Phase 2: each kernel against its plain version at main-path shapes
-    (one row per kernel, returned), then at the variants' shapes (rows in
-    ``detail["kernel_shapes"]``)."""
+def _grid(uv, P, h, w, K):
+    """grid_sample's normalised (K, M, P², 2) grid of the patches' sample
+    points (align_corners=True: -1 and 1 are the border pixel centres)."""
     import torch
+    from stereo_svo_tpu_torch.ops import interp
+    pts = (uv.reshape(-1, 2)[:, None, :]
+           + interp.patch_coords(P, uv.dtype, uv.device))
+    scale = torch.tensor([2.0 / (w - 1), 2.0 / (h - 1)], device=uv.device)
+    return (pts * scale - 1.0)[None].expand(K, -1, -1, -1).contiguous()
+
+
+def check_kernels(device, frame, kitti_frame):
+    """Phase 2: each kernel against its plain version on the card at every
+    shape a shipped path gives it, with its bound, device, host, event and
+    library-call times. Returns the rows; the first row of each kernel is
+    its main-path row."""
+    import torch
+    import torch.nn.functional as F
+    from stereo_svo_tpu_torch.ops import pyramid
     from stereo_svo_tpu_torch.ops.kernels import _build
     from stereo_svo_tpu_torch.ops.kernels import align_kernel as ak
     from stereo_svo_tpu_torch.ops.kernels import pyramid_kernel as pk
@@ -128,28 +269,51 @@ def check_kernels(device, frame, kitti_frame, detail):
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     img = frame.contiguous()
     H, W = img.shape
-    rows, shape_rows = [], []
+    rows = []
 
-    def record(name, kernel, plain, tol_abs, tol_rel, extra=None,
-               main=True):
+    def record(name, kernel, plain, tol_abs, tol_rel, shape, path,
+               nbytes, flops, library=None, extra=None):
+        """``library``: (the library call, timed alone; a function of its
+        output giving the (library, kernel) values compared) or None."""
         out, ref = kernel(), plain()
         torch.cuda.synchronize()
         err_abs, err_rel = _max_err(out, ref)
-        ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
         ok = err_abs <= tol_abs or err_rel <= tol_rel
+        dev_us, per_call, method = device_us(kernel, KERNEL_FUNCTIONS[name])
+        bound, bound_by = bound_us(nbytes, flops)
         row = {"name": name, "route": "cuda", "source": SOURCES[name],
-               "replaces": TPU_KERNELS[name], "launches": None,
+               "replaces": TPU_KERNELS[name], "shape": shape, "path": path,
+               "launches": None, "launches_per_frame": None,
                "max_abs_err": err_abs, "max_rel_err": err_rel,
-               "tol_abs": tol_abs, "tol_rel": tol_rel, "ms": ms,
-               "plain_ms": plain_ms, **(extra or {})}
+               "tol_abs": tol_abs, "tol_rel": tol_rel,
+               "ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
+               "device_us": dev_us, "device_method": method,
+               "cuda_launches_per_call": per_call,
+               "host_us": host_us(kernel), "bytes": nbytes, "flops": flops,
+               "bound_us": bound, "bound_ms": bound / 1e3,
+               "bound_by": bound_by, "library_call": LIBRARY_CALLS[name],
+               "library_ms": None, "library_device_us": None,
+               "library_host_us": None, "library_max_abs_err": None,
+               **(extra or {})}
+        if library is None:
+            row["library_reason"] = NO_LIBRARY_CALL
+        else:
+            call, compared = library
+            row["library_max_abs_err"] = _max_err(*compared(call()))[0]
+            row["library_ms"] = cuda_ms(call)
+            row["library_device_us"] = device_us(call, ("",))[0]
+            row["library_host_us"] = host_us(call)
         emit("phase2", row)
-        require(ok, f"{name} {extra}: kernel disagrees with its plain "
+        require(ok, f"{name} {shape}: kernel disagrees with its plain "
                     f"version (abs {err_abs}, rel {err_rel})")
-        (rows if main else shape_rows).append(row)
+        require(per_call is None or per_call <= 1.0,
+                f"{name} {shape}: {per_call} CUDA launches per call, not 1")
+        rows.append(row)
 
-    def exact_pyramid(top, levels, what):
-        """B1/B2 on every level of a pyramid: bit for bit."""
-        lv, shapes = top.contiguous(), []
+    def pyramid_case(image, path, levels, what):
+        """B1/B2 exact on every level of a pyramid; timed at level 0."""
+        lv = image.contiguous()
+        shapes = []
         for level in range(levels):
             shapes.append(list(lv.shape))
             for a, b in zip(pk.gradients(lv), pk.gradients_plain(lv)):
@@ -160,49 +324,73 @@ def check_kernels(device, frame, kitti_frame, detail):
                 e = _max_err(half, pk.halfsample_plain(lv))[0]
                 require(e == 0.0, f"halfsample, {what} level {level}: {e}")
                 lv = half
-        return shapes
+        h, w = image.shape
+        h2, w2 = h // 2, w // 2
+        x = image[None, None]
+        # the same additions in the same order, no fused multiply-add: exact
+        record("halfsample", lambda: pk.halfsample(image),
+               lambda: pk.halfsample_plain(image), 0.0, 0.0, [h, w], path,
+               4.0 * (4 * h2 * w2 + h2 * w2), 4.0 * h2 * w2,
+               (lambda: F.avg_pool2d(x, 2),
+                lambda y: (y[0, 0], pk.halfsample(image))),
+               {"levels_exact": shapes})
+        stencil = torch.zeros(2, 1, 3, 3, device=image.device)
+        stencil[0, 0, 1, 0], stencil[0, 0, 1, 2] = -0.5, 0.5
+        stencil[1, 0, 0, 1], stencil[1, 0, 2, 1] = -0.5, 0.5
+        record("gradients", lambda: pk.gradients(image),
+               lambda: pk.gradients_plain(image), 0.0, 0.0, [h, w], path,
+               4.0 * 3 * h * w, 4.0 * h * w,
+               (lambda: F.conv2d(x, stencil, padding=1),
+                lambda y: (y[0, :, 1:-1, 1:-1],
+                           torch.stack(pk.gradients(image))[:, 1:-1, 1:-1])))
 
-    # B1 / B2 over the whole 752x480 pyramid; timed at level 0
-    exact_pyramid(img, 4, "752x480")
-    # the same additions in the same order, no fused multiply-add: exact
-    record("halfsample", lambda: pk.halfsample(img),
-           lambda: pk.halfsample_plain(img), 0.0, 0.0,
-           {"shape": [H, W], "all_levels_exact": True})
-    record("gradients", lambda: pk.gradients(img),
-           lambda: pk.gradients_plain(img), 0.0, 0.0, {"shape": [H, W]})
+    def patch_case(image, uv, P, path, use, K=1):
+        """B3 at centres ``uv`` on ``image`` (K = 3: the level's image, gx
+        and gy in one launch): bit for bit the plain version."""
+        h, w = image.shape
+        src = image
+        if K == 3:
+            levels, gxs, gys = pyramid.build_with_gradients(image, 1)
+            src = pyramid.level_planes(levels[0], gxs[0], gys[0])
+        M, P2 = uv.numel() // 2, P * P
+        half = (P - 1) / 2.0
+        flat = uv.reshape(-1, 2)
+        inner = ((flat[:, 0] >= half + 1) & (flat[:, 0] <= w - half - 3)
+                 & (flat[:, 1] >= half + 1) & (flat[:, 1] <= h - half - 3))
+        grid = _grid(uv, P, h, w, K)
+        planes = src.reshape(K, 1, h, w)
+        record("sample_patches", lambda: ak.sample_patches(src, uv, P),
+               lambda: ak.sample_patches_plain(src, uv, P), 0.0, 0.0,
+               [K, h, w, M, P], path,
+               4.0 * (K * footprint_pixels(h, w, uv, P) + 2 * M
+                      + K * M * P2),
+               # per output: 4 operations for the tap coordinates, 9 for
+               # the blend
+               13.0 * K * M * P2,
+               (lambda: F.grid_sample(planes, grid, mode="bilinear",
+                                      padding_mode="border",
+                                      align_corners=True),
+                lambda y: (y[:, 0][:, inner], ak.sample_patches(
+                    src, uv, P).reshape(K, M, P2)[:, inner])),
+               {"use": use, "interior_centres": int(inner.sum())})
 
-    # B3 at N=192 (interior and border centres), P=4 and P=8
-    n_border = 48
-    uv = torch.rand(192, 2, generator=gen) * torch.tensor([W - 1.0, H - 1.0])
-    edge = torch.rand(n_border, 2, generator=gen) * 5.0 - 3.0
-    uv[:n_border // 2] = edge[:n_border // 2]
-    uv[n_border // 2:n_border] = (torch.tensor([W - 1.0, H - 1.0])
-                                  + edge[n_border // 2:])
-    uv = uv.to(device)
-    p4 = _max_err(ak.sample_patches(img, uv, 4),
-                  ak.sample_patches_plain(img, uv, 4))
-    ms4 = cuda_ms(lambda: ak.sample_patches(img, uv, 4))
-    # separate multiplies and adds on both sides (-fmad=false): a few ulp
-    record("sample_patches", lambda: ak.sample_patches(img, uv, 8),
-           lambda: ak.sample_patches_plain(img, uv, 8), 1e-3, 1e-5,
-           {"N": 192, "P": 8, "border_centres": n_border,
-            "P4_max_abs_err": p4[0], "P4_ms": ms4})
-
-    def gn_case(image, N, extra, main=True):
+    def gn_case(image, N, path, use):
         """B4 at N features, P=4, on ``image`` with (a, b) != (1, 0) and a
-        per-pixel mask. The number of pass-1 blocks grows with N (up to
-        128 at N=2048), so each path's N is checked."""
+        per-pixel mask; bit-reproducible, also after a call at another
+        width on the same stream."""
         P = 4
         h, w = image.shape
         uv_in = (torch.rand(N, 2, generator=gen)
                  * torch.tensor([w - 8.0, h - 8.0]) + 4.0).to(device)
         cur = ak.sample_patches_plain(image, uv_in, P)
-        ab = torch.tensor([1.3, -7.0], device=device)
-        tmpl = ((cur - ab[1]) / ab[0]
+        a_il = torch.tensor(1.3, device=device)
+        b_il = torch.tensor(-7.0, device=device)
+        tmpl = ((cur - b_il) / a_il
                 + 6.0 * torch.randn(cur.shape, generator=gen).to(device))
         jac = torch.randn(N, P * P, 6, generator=gen).to(device) * 50.0
         mask = (torch.rand(N, P * P, generator=gen) > 0.2).float().to(device)
-        args = (image, uv_in, tmpl.contiguous(), jac, mask, P, 8.0, ab)
+        args = (image, uv_in, tmpl.contiguous(), jac, mask, P, 8.0, a_il,
+                b_il)
         kern = ak.gn_accumulate(*args)
         plain = ak.gn_accumulate_plain(*args)
         for a, b, name in zip(kern[3:], plain[3:], ("n_eff", "n_inl")):
@@ -211,55 +399,66 @@ def check_kernels(device, frame, kitti_frame, detail):
         again = ak.gn_accumulate(*args)
         require(all(torch.equal(a, b) for a, b in zip(kern, again)),
                 f"gn_accumulate N={N} is not bit-reproducible")
+        gn_runs[N] = (args, kern)
+        terms = N * P * P
         # H, g, cost: float32 sums of N·16 terms in two orders, so the
         # error is judged relative to each output's largest entry
         record("gn_accumulate", lambda: ak.gn_accumulate(*args)[:3],
                lambda: ak.gn_accumulate_plain(*args)[:3], 0.0, 1e-4,
-               {"N": N, "P": P, "image": [h, w], "a_b": [1.3, -7.0],
-                "pass1_blocks": _build.load_library().svo_gn_blocks(N, P),
-                "bit_reproducible": True, **extra}, main=main)
+               [h, w, N, P], path,
+               4.0 * (footprint_pixels(h, w, uv_in, P) + 2 * N + terms * 8
+                      + 2 + 45),
+               # per term: 13 to sample, 6 for the residual and Huber
+               # weight, 6 + 42 + 12 for Jw, H and g, 5 for cost and counts
+               84.0 * terms, None,
+               {"use": use, "a_b": [1.3, -7.0],
+                "blocks": _build.load_library().svo_gn_blocks(N, P),
+                "bit_reproducible": True})
 
-    def patch_case(image, N, P, extra):
-        """B3 at N centres spread over ``image`` and 2 px beyond it."""
-        h, w = image.shape
-        uv_n = (torch.rand(N, 2, generator=gen)
-                * torch.tensor([w + 4.0, h + 4.0]) - 2.0).to(device)
-        record("sample_patches", lambda: ak.sample_patches(image, uv_n, P),
-               lambda: ak.sample_patches_plain(image, uv_n, P), 1e-3, 1e-5,
-               {"N": N, "P": P, "image": [h, w], **extra}, main=False)
+    def centres(N, h, w, n_border=0):
+        """N centres over the image and 2 px beyond it; the first
+        ``n_border`` within 3 px of a corner side."""
+        uv = (torch.rand(N, 2, generator=gen)
+              * torch.tensor([w + 4.0, h + 4.0]) - 2.0)
+        edge = torch.rand(n_border, 2, generator=gen) * 5.0 - 3.0
+        uv[:n_border // 2] = edge[:n_border // 2]
+        uv[n_border // 2:n_border] = (torch.tensor([w - 1.0, h - 1.0])
+                                      + edge[n_border // 2:])
+        return uv.to(device)
 
-    # B4 at N=192 on level 0
-    gn_case(img, 192, {})
-
-    # ---- the variants' shapes ----
+    gn_runs = {}
     kitti = kitti_frame.contiguous()
-    kitti_levels = exact_pyramid(kitti, 4, "1241x376")
-    stress_levels = exact_pyramid(img, 5, "752x480 5-level")
-    emit("phase2_pyramids", {"kitti_levels": kitti_levels,
-                             "stress_levels": stress_levels, "exact": True})
-    kh, kw = kitti.shape
-    record("halfsample", lambda: pk.halfsample(kitti),
-           lambda: pk.halfsample_plain(kitti), 0.0, 0.0,
-           {"shape": [kh, kw]}, main=False)
-    record("gradients", lambda: pk.gradients(kitti),
-           lambda: pk.gradients_plain(kitti), 0.0, 0.0,
-           {"shape": [kh, kw]}, main=False)
+    half_img, half_kitti = pk.halfsample(img), pk.halfsample(kitti)
+    uv192 = centres(192, H, W, n_border=48)
+    # ---- main path (phase 3): the first row of each kernel ----
+    pyramid_case(img, "phase3", 4, "752x480")
+    patch_case(img, uv192, 8, "phase3", "KLT iterations")
+    gn_case(img, 192, "phase3", "alignment refresh pass")
+    patch_case(img, uv192, 4, "phase3", "alignment inner passes")
+    patch_case(img, uv192, 4, "phase3", "alignment template", K=3)
+    patch_case(img, uv192, 8, "phase3", "KLT template (keyframes)", K=3)
+    # ---- the other paths' shapes ----
+    pyramid_case(kitti, "phase4", 4, "1241x376")
+    pyramid_case(img, "phase5", 5, "752x480 5-level")
     # epipolar search: 240 seeds x 16 probes on KITTI level 1 (620x188)
-    patch_case(pk.halfsample(kitti), 240 * 16, 8, {"use": "epipolar probes"})
+    patch_case(half_kitti, centres(240 * 16, *half_kitti.shape), 8,
+               "phase4", "epipolar probes")
+    patch_case(kitti, centres(240, *kitti.shape), 8, "phase4", "KITTI KLT")
+    patch_case(img, centres(2048, H, W), 8, "phase5", "stress KLT")
     # affine KLT: oversized 16x16 templates at N=192 on the 752x480 level
-    record("sample_patches", lambda: ak.sample_patches(img, uv, 16),
-           lambda: ak.sample_patches_plain(img, uv, 16), 1e-3, 1e-5,
-           {"N": 192, "P": 16, "image": [H, W], "use": "big templates"},
-           main=False)
-    # KLT at the KITTI (240 slots) and stress (2048 slots) widths
-    patch_case(kitti, 240, 8, {"use": "KITTI KLT"})
-    patch_case(img, 2048, 8, {"use": "stress KLT"})
-    # alignment's refresh pass at those widths: KITTI level 0, stress
-    # level 1 (its finest alignment level)
-    gn_case(kitti, 240, {"use": "KITTI alignment"}, main=False)
-    gn_case(pk.halfsample(img), 2048, {"use": "stress alignment"},
-            main=False)
-    detail["kernel_shapes"] = shape_rows
+    patch_case(img, uv192, 16, "phase6", "big templates")
+    # alignment's refresh pass at the KITTI (level 0) and stress (level 1,
+    # its finest alignment level) widths
+    gn_case(kitti, 240, "phase4", "KITTI alignment")
+    gn_case(half_img, 2048, "phase5", "stress alignment")
+    # one launch per call leaves the ticket counter at 0 whatever the grid:
+    # N = 192 → 2048 → 192 back to back repeats each first result
+    outs = [ak.gn_accumulate(*gn_runs[N][0]) for N in (192, 2048, 192)]
+    for out, N in zip(outs, (192, 2048, 192)):
+        require(all(torch.equal(a, b) for a, b in zip(out, gn_runs[N][1])),
+                f"gn_accumulate N={N} changed after a call at another width")
+    emit("phase2_gn_alternation", {"widths": [192, 2048, 192],
+                                   "bit_equal": True})
     return rows
 
 
@@ -431,11 +630,10 @@ def main() -> int:
             f"{k_lefts.shape}")
 
     # ---- phase 2: kernels against plain versions ----
-    rows = check_kernels(device, lefts[0], k_lefts[0], detail)
+    rows = check_kernels(device, lefts[0], k_lefts[0])
 
     # ---- phase 3: the main path, SvoConfig() as shipped ----
     phase3, frame_ms, metrics = drive(cfg, lefts, rights, gt, counters)
-    launches = phase3["launches"]
     phase3.update(config="SvoConfig()", render_seconds=render_s)
     emit("phase3", phase3)
     detail.update(phase0=phase0, phase3=phase3, frame_ms=frame_ms,
@@ -489,16 +687,29 @@ def main() -> int:
     require(phase6["warped_templates"] > 0,
             "no feature was tracked on a warped template")
 
+    # launches of each row's kernel on the path that gives it its shape
+    paths = {"phase3": phase3, "phase4": phase4, "phase5": phase5,
+             "phase6": phase6}
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        path = paths[row["path"]]
+        row["launches"] = path["launches"][row["name"]]
+        row["launches_per_frame"] = path["launches_per_frame"][row["name"]]
+    emit("phase2_rows", {"rows": [
+        {k: r.get(k) for k in ROW_SUMMARY} for r in rows]})
     detail["kernels"] = rows
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump(detail, f, indent=1)
 
+    main_rows = {}
+    for row in rows:                 # each kernel's first row: phase 3
+        main_rows.setdefault(row["name"], row)
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "launches",
-                           "max_abs_err", "ms", "plain_ms")} for r in rows]}))
+                           "max_abs_err", "max_rel_err", "ms", "plain_ms",
+                           "bound_ms", "bound_by", "library_ms", "device_us",
+                           "host_us")}
+        for r in main_rows.values()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,0 +1,134 @@
+#!/usr/bin/env python3
+"""Time the four CUDA kernels of one source tree of the port at
+chip_smoke.py's phase-2 shapes, for a before/after comparison on one GPU.
+
+Run from the repository root:
+    python3 compare_kernels.py [--tree DIR] [--tag NAME]
+
+``--tree`` is the root of a checkout whose ``stereo_svo_tpu_torch`` is
+timed (default: this one), e.g. an unpacked ``git archive`` of an earlier
+commit in an ignored directory; its kernels build into ``DIR/build/``.
+The measurement functions (``cuda_ms``, ``device_us``, ``host_us``) come
+from this checkout's chip_smoke.py, so two trees are timed alike. Compare
+two trees only within one command on one card, in turns: parent, change,
+change, parent.
+
+Prints one JSON line per row: tag, kernel, use, shape, ms (median CUDA
+event pair around one call), device_us and cuda_launches_per_call
+(torch.profiler over 200 back-to-back calls), host_us (host clock over
+200 back-to-back calls, no sync). A "template" row times the samples of one
+template level (image, gx and gy at the same centres): one call on the
+(3,H,W) level buffer where the tree's B3 takes one, three calls where it
+does not. B4 rows call the wrapper as the tree's ``ops/align.py`` does
+(with its ``torch.stack`` of the illumination pair where the tree's B4
+takes one tensor).
+"""
+
+from __future__ import annotations
+
+import argparse
+import inspect
+import json
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", default=ROOT)
+    ap.add_argument("--tag", default=None)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("FAIL: compare_kernels.py needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    tree = os.path.abspath(args.tree)
+    tag = args.tag or os.path.relpath(tree, ROOT)
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    sys.path.insert(0, tree)
+    import stereo_svo_tpu_torch as port
+    if not os.path.abspath(port.__file__).startswith(tree + os.sep):
+        print(f"FAIL: imported {port.__file__}, not the tree {tree}",
+              file=sys.stderr)
+        return 1
+    from stereo_svo_tpu_torch.ops.kernels import align_kernel as ak
+    from stereo_svo_tpu_torch.ops.kernels import pyramid_kernel as pk
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(cs.SEED)
+
+    def image(h, w):
+        return (torch.rand(h, w, generator=gen) * 255.0).to(dev)
+
+    def centres(N, h, w):
+        return (torch.rand(N, 2, generator=gen)
+                * torch.tensor([w + 4.0, h + 4.0]) - 2.0).to(dev)
+
+    img, kitti = image(480, 752), image(376, 1241)
+    half_img, half_kitti = pk.halfsample(img), pk.halfsample(kitti)
+    stacked_b3 = hasattr(ak, "MAX_IMAGES")
+    split_ab = len(inspect.signature(ak.gn_accumulate).parameters) == 9
+
+    def row(name, use, shape, fn):
+        dev_us, per_call, method = cs.device_us(
+            fn, cs.KERNEL_FUNCTIONS[name])
+        print(json.dumps({
+            "tag": tag, "kernel": name, "use": use, "shape": shape,
+            "ms": cs.cuda_ms(fn), "device_us": dev_us,
+            "device_method": method, "cuda_launches_per_call": per_call,
+            "host_us": cs.host_us(fn)}), flush=True)
+
+    for x, what in ((img, "752x480"), (kitti, "1241x376")):
+        row("halfsample", what, list(x.shape), lambda x=x: pk.halfsample(x))
+        row("gradients", what, list(x.shape), lambda x=x: pk.gradients(x))
+
+    uv192 = centres(192, 480, 752)
+    for x, uv, P, use in ((img, uv192, 8, "KLT iterations"),
+                          (img, uv192, 4, "alignment inner passes"),
+                          (half_kitti, centres(3840, 188, 620), 8,
+                           "epipolar probes"),
+                          (img, uv192, 16, "big templates"),
+                          (kitti, centres(240, 376, 1241), 8, "KITTI KLT"),
+                          (img, centres(2048, 480, 752), 8, "stress KLT")):
+        row("sample_patches", use, [list(x.shape), uv.shape[0], P],
+            lambda x=x, uv=uv, P=P: ak.sample_patches(x, uv, P))
+    gx, gy = pk.gradients(img)
+    planes = torch.stack([img, gx, gy])
+    for P, use in ((4, "alignment template"), (8, "KLT template")):
+        if stacked_b3:
+            def fn(P=P):
+                return ak.sample_patches(planes, uv192, P)
+        else:
+            def fn(P=P):
+                return [ak.sample_patches(x, uv192, P) for x in (img, gx, gy)]
+        row("sample_patches", use, [[3, 480, 752], 192, P], fn)
+
+    P = 4
+    for x, N, use in ((img, 192, "alignment refresh pass"),
+                      (kitti, 240, "KITTI alignment"),
+                      (half_img, 2048, "stress alignment")):
+        h, w = x.shape
+        uv = (torch.rand(N, 2, generator=gen)
+              * torch.tensor([w - 8.0, h - 8.0]) + 4.0).to(dev)
+        tmpl = (torch.rand(N, P * P, generator=gen) * 255.0).to(dev)
+        jac = (torch.randn(N, P * P, 6, generator=gen) * 50.0).to(dev)
+        mask = (torch.rand(N, P * P, generator=gen) > 0.2).float().to(dev)
+        a_il = torch.tensor(1.3, device=dev)
+        b_il = torch.tensor(-7.0, device=dev)
+        if split_ab:
+            def fn(x=x, uv=uv, tmpl=tmpl, jac=jac, mask=mask):
+                return ak.gn_accumulate(x, uv, tmpl, jac, mask, P, 8.0, a_il,
+                                        b_il)
+        else:
+            def fn(x=x, uv=uv, tmpl=tmpl, jac=jac, mask=mask):
+                return ak.gn_accumulate(x, uv, tmpl, jac, mask, P, 8.0,
+                                        torch.stack([a_il, b_il]))
+        row("gn_accumulate", use, [list(x.shape), N, P], fn)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -4,8 +4,10 @@ The JAX package stays the reference; this package mirrors its layout and
 names (``geometry/se3.py`` ↔ ``geometry/se3.py`` …) in PyTorch, and the
 four Pallas TPU kernels are hand-written CUDA kernels for Hopper
 (``csrc/``, wrapped in ``ops/kernels/``). It imports ``torch`` and never
-``jax``: the two numpy-only host modules it shares with the reference
-(``config.py`` and ``eval/ate.py``) are loaded by file path.
+``jax`` nor any file of the reference package: ``config.py`` and
+``eval/ate.py`` are its own copies, held equal to the reference by the
+tests. Its entry points run on the card (``device="cuda"``) unless the
+caller passes ``device="cpu"``.
 
 TF32 stays off for every float32 matrix product and convolution: the 6×6
 normal equations of alignment and pose refinement are precision-sensitive.

@@ -13,19 +13,18 @@ import numpy as np
 import torch
 
 from ..config import SvoConfig
+from ..device import resolve
 from .state import FrameOut, SlamState, init_state
 from .step import HostFlags, make_step
 
 
 class StereoSvo:
     """Construct with settings and a device, feed stereo pairs, read
-    poses/trajectory. ``device="cuda"`` requires a CUDA device."""
+    poses/trajectory. Runs on the card unless ``device="cpu"``; raises
+    RuntimeError where CUDA is missing."""
 
-    def __init__(self, cfg: SvoConfig, device="cpu"):
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("StereoSvo(device='cuda'): CUDA is not "
-                               "available")
+    def __init__(self, cfg: SvoConfig, device="cuda"):
+        device = resolve(device)
         self.cfg = cfg
         self.device = device
         self._step = make_step(cfg)
@@ -60,7 +59,7 @@ class StereoSvo:
                 for k in FrameOut._fields if k != "T_wc"}
 
 
-def run_sequence(cfg: SvoConfig, lefts, rights, device="cpu"
+def run_sequence(cfg: SvoConfig, lefts, rights, device="cuda"
                  ) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
     """Run a whole sequence; returns (T_wc trajectory (N,3,4), metrics)."""
     svo = StereoSvo(cfg, device)

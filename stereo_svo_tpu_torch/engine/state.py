@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..config import SvoConfig
+from ..device import resolve
 from ..geometry import se3
 from ..ops import align as align_ops
 from ..ops import klt as klt_ops
@@ -102,7 +103,8 @@ class FrameOut(NamedTuple):
     n_warped: torch.Tensor
 
 
-def init_state(cfg: SvoConfig, device="cpu") -> SlamState:
+def init_state(cfg: SvoConfig, device="cuda") -> SlamState:
+    device = resolve(device)
     N, K, M = cfg.max_features, cfg.max_keyframes, cfg.mem_keyframes
     L_align = cfg.align_levels - cfg.align_min_level
     P2a = cfg.align_patch ** 2
@@ -156,9 +158,10 @@ def _fields(obj) -> dict:
     return obj._asdict() if hasattr(obj, "_asdict") else dict(obj)
 
 
-def state_from_numpy(np_state, device="cpu") -> SlamState:
+def state_from_numpy(np_state, device="cuda") -> SlamState:
     """SlamState from any NamedTuple or dict of numpy-convertible arrays
     with the reference's field names (nested Template/KltTemplate too)."""
+    device = resolve(device)
     src = _fields(np_state)
 
     def conv(a):

@@ -4,6 +4,7 @@ closed form (z-buffered, so spheres occlude), known trajectories, and the
 photometric nuisance model, so frames can be rendered on the card without
 JAX.
 
+Scenes and sequences are built on the card unless ``device="cpu"``.
 ``perturb_stereo`` draws from an explicit ``torch.Generator`` on the
 images' device; its random draws cannot match the reference's JAX PRNG,
 only its distribution and its deterministic part (vignette, clip).
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from ..config import CameraConfig
+from ..device import resolve
 from ..geometry import se3
 
 _N_WAVES = 24
@@ -114,8 +116,9 @@ def _backdrop(z: float, device) -> Plane:
                   [0.0, 1.0, 0.0], device)
 
 
-def default_scene(seed: int = 0, device="cpu"):
+def default_scene(seed: int = 0, device="cuda"):
     """Two tilted textured planes in front of the camera (z forward)."""
+    device = resolve(device)
     nA = _unit([0.25, -0.15, -1.0])
     pA = _plane(nA, [0, 0, 4.0], _unit(np.cross(nA, [0, 1, 0])),
                 _unit(np.cross(nA, np.cross(nA, [0, 1, 0]))), device)
@@ -123,9 +126,10 @@ def default_scene(seed: int = 0, device="cpu"):
             (_texture_params(seed), _texture_params(seed + 1)))
 
 
-def cluttered_scene(seed: int = 0, n_spheres: int = 6, device="cpu"):
+def cluttered_scene(seed: int = 0, n_spheres: int = 6, device="cuda"):
     """Non-planar scene: backdrop + ground plane + textured spheres at mixed
     depths (parallax layers and occlusion)."""
+    device = resolve(device)
     rng = np.random.default_rng(1000 + seed)
     prims = [_backdrop(16.0, device),
              _ground([0.02, -1.0, -0.05], [0, 1.8, 0], device)]
@@ -143,9 +147,10 @@ def cluttered_scene(seed: int = 0, n_spheres: int = 6, device="cpu"):
 
 
 def road_scene(seed: int = 0, length: float = 60.0, wall_tilt: float = 0.06,
-               device="cpu"):
+               device="cuda"):
     """KITTI-like deep scene: road plane + two building walls converging
     at x = 7/wall_tilt m + a backdrop at ``length`` m."""
+    device = resolve(device)
     prims = [_ground([0.0, -1.0, -0.02], [0, 1.65, 0], device)]
     for sx in (-1.0, 1.0):
         nW = _unit([-sx, 0.0, -wall_tilt])
@@ -157,9 +162,10 @@ def road_scene(seed: int = 0, length: float = 60.0, wall_tilt: float = 0.06,
     return tuple(prims), texs
 
 
-def dynamic_scene(seed: int = 0, t=0.0, device="cpu"):
+def dynamic_scene(seed: int = 0, t=0.0, device="cuda"):
     """Cluttered scene with one sphere moving laterally (≈0.25 m per unit
     t): features on it violate the static-world assumption."""
+    device = resolve(device)
     prims, texs = cluttered_scene(seed, n_spheres=5, device=device)
     t = torch.as_tensor(t, dtype=torch.float32, device=device)
 
@@ -172,7 +178,7 @@ def dynamic_scene(seed: int = 0, t=0.0, device="cpu"):
     return prims + (mover,), texs + (_texture_params(seed + 999),)
 
 
-def get_scene(kind: str, seed: int = 0, device="cpu"):
+def get_scene(kind: str, seed: int = 0, device="cuda"):
     """Scene factory: 'planes' (two-plane), 'clutter' (spheres+occlusion),
     'road' (KITTI-like corridor) or 'road_long' (a ~180 m corridor whose
     walls converge at 350 m). 'dynamic' is built per frame by
@@ -335,7 +341,7 @@ def trajectory_pose(t: torch.Tensor, kind: str = "arc") -> torch.Tensor:
 def make_sequence(cam: CameraConfig, n_frames: int, dt: float = 0.1,
                   kind: str = "arc", seed: int = 0,
                   scene_kind: str = "planes", perturb: bool = False,
-                  motion_blur: float = 0.0, device="cpu"):
+                  motion_blur: float = 0.0, device="cuda"):
     """Render a sequence on ``device``: tensors (N,H,W), (N,H,W), (N,3,4)
     of left images, right images and ground-truth T_wc.
 
@@ -344,6 +350,7 @@ def make_sequence(cam: CameraConfig, n_frames: int, dt: float = 0.1,
     generator seeded with ``seed``; ``motion_blur`` > 0 averages 3
     sub-exposures spread over that fraction of the inter-frame motion.
     """
+    device = resolve(device)
     if scene_kind == "dynamic":
         def render(T, t):
             return render_stereo(cam, T, dynamic_scene(seed, t, device))

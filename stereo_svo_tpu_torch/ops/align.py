@@ -17,7 +17,7 @@ import torch
 
 from ..config import CameraConfig, SvoConfig
 from ..geometry import camera, se3
-from . import interp, solve
+from . import interp, pyramid, solve
 from .kernels import align_kernel
 
 
@@ -48,9 +48,8 @@ def make_template(levels: Sequence[torch.Tensor],
     for lv in _level_list(cfg):
         uv_l = uv * (1.0 / (2 ** lv))
         pts = uv_l[:, None, :] + offs[None]                 # (N, P2, 2)
-        patch = interp.sample_patch(levels[lv], uv_l, P)
-        gu = interp.sample_patch(gxs[lv], uv_l, P)
-        gv = interp.sample_patch(gys[lv], uv_l, P)
+        patch, gu, gv = interp.sample_patch(      # one B3 launch
+            pyramid.level_planes(levels[lv], gxs[lv], gys[lv]), uv_l, P)
         p_pix = camera.backproject(cam, pts * (2 ** lv),
                                    z[:, None].expand(pts.shape[:2]))
         Jpose = camera.proj_pose_jacobian(cam, p_pix, level=lv)  # (N,P2,2,6)
@@ -83,6 +82,9 @@ def align(levels_cur: Sequence[torch.Tensor], tmpl: Template,
     T = T_init
     last_cost = torch.zeros((), device=dev)
     inlier_frac = torch.zeros((), device=dev)
+    if not cfg.illum_affine:
+        a_il = torch.ones((), device=dev)
+        b_il = torch.zeros((), device=dev)
 
     lvl_list = _level_list(cfg)
     schedule = cfg.align_iters_per_level
@@ -123,13 +125,10 @@ def align(levels_cur: Sequence[torch.Tensor], tmpl: Template,
                 var = torch.sum((ref_patch - m_ref) ** 2 * okf) / sw
                 a_il = torch.clamp(cov / torch.clamp(var, min=1e-3), 0.5, 2.0)
                 b_il = m_cur - a_il * m_ref
-            else:
-                a_il = torch.ones((), device=dev)
-                b_il = torch.zeros((), device=dev)
             # the Huber weights of this pass, reused by the inner passes
             w = _huber_weight(cur - (a_il * ref_patch + b_il), k) * okf
             H, g, cost_sum, n_eff, n_inl = align_kernel.gn_accumulate(
-                img, uv_c, ref_patch, J, okf, P, k, torch.stack([a_il, b_il]))
+                img, uv_c, ref_patch, J, okf, P, k, a_il, b_il)
             n_ok = torch.clamp(n_eff, min=1.0)
             last_cost = cost_sum / n_ok
             inlier_frac = n_inl / n_ok

@@ -72,7 +72,8 @@ def patch_coords(patch: int, dtype=torch.float32, device=None
 
 def sample_patch(img: torch.Tensor, center_uv: torch.Tensor,
                  patch: int) -> torch.Tensor:
-    """(…,patch²) intensity patches centred at (…,2) points (kernel B3)."""
+    """(…,patch²) intensity patches centred at (…,2) points (kernel B3);
+    ``img`` (K,H,W) with K ≤ 3 gives (K,…,patch²), one launch."""
     return align_kernel.sample_patches(img, center_uv, patch)
 
 

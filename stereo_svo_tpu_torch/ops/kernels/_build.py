@@ -1,10 +1,17 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+"""Build and load the port's CUDA kernels (``csrc/*.cu``), and the checks
+every wrapper runs before a launch.
 
 ``nvcc`` compiles every source into one shared library with a plain C
 interface, loaded with ``ctypes`` — no PyTorch headers, so the build takes
 seconds. The library goes to ``build/stereo_svo_tpu_torch/`` at the repo
 root, named by a hash of the sources and flags, at the first CUDA call.
 Nothing here runs at import time.
+
+The wrappers sit on the host path of every launch (tens per frame), so
+the per-call work is kept small: the C functions are bound once
+(:func:`load_library`), the device rule and the tensor checks are a few
+attribute reads each (:func:`plain`, :func:`check`), and the raw stream
+handle comes from one call (:func:`stream`).
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from types import SimpleNamespace
 
 import torch
 
@@ -29,13 +37,15 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 _SIGNATURES = {
     "svo_halfsample": [_P, _P, _I, _I, _P],
     "svo_gradients": [_P, _P, _P, _I, _I, _P],
-    "svo_sample_patch": [_P, _I, _I, _P, _L, _I, _P, _P],
+    "svo_sample_patch": [_P, _I, _I, _I, _P, _L, _I, _P, _P],
     "svo_gn_blocks": [_I, _I],
-    "svo_gn_accumulate": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _F,
-                          _P, _P, _P],
+    "svo_gn_scratch_floats": [],
+    "svo_gn_accumulate": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _F,
+                          _P, _P, _P, _P],
 }
+F32 = torch.float32
 
-_lib = None  # the loaded library, once built
+_lib = None  # the bound C functions, once built
 
 
 def _nvcc() -> str:
@@ -58,8 +68,9 @@ def library_path() -> Path:
     return BUILD_DIR / f"libsvo_kernels_{h.hexdigest()[:16]}.so"
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library; raise on failure."""
+def load_library() -> SimpleNamespace:
+    """Build (if needed) and load the kernel library; return its C
+    functions, bound with their argument types. Raise on failure."""
     global _lib
     if _lib is not None:
         return _lib
@@ -76,42 +87,51 @@ def load_library() -> ctypes.CDLL:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                                f"{proc.stderr[-4000:]}")
         os.replace(tmp, out)   # atomic: a concurrent build never sees half
-    lib = ctypes.CDLL(str(out))
+    cdll = ctypes.CDLL(str(out))
+    fns = {}
     for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
+        fn = getattr(cdll, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
+        fns[name] = fn
+    _lib = SimpleNamespace(**fns)
+    return _lib
 
 
-def stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def stream(device: torch.device) -> int:
+    """Raw handle of the current CUDA stream on ``device``."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
-def is_cpu(*tensors: torch.Tensor) -> bool:
+def plain(*tensors: torch.Tensor | None) -> bool:
     """True if the kernel's plain version applies (all tensors on the CPU);
-    False for CUDA tensors. Any other device, or a mix, raises."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
+    False for tensors on one CUDA device. Any other device, or a mix,
+    raises. ``None`` entries (an output not given) are skipped."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t is not None and t.device != dev:
+            raise ValueError(
+                f"kernel inputs must all be on one CPU or CUDA device, got "
+                f"{sorted(str(t.device) for t in tensors if t is not None)}")
+    if dev.type == "cpu":
         return True
-    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+    if dev.type == "cuda":
         return False
-    raise ValueError(f"kernel inputs must all be on one CPU or CUDA device, "
-                     f"got {sorted(str(t.device) for t in tensors)}")
+    raise ValueError(f"kernel inputs must be on the CPU or a CUDA device, "
+                     f"got {dev}")
 
 
 def check(t: torch.Tensor, name: str, shape: tuple) -> None:
-    """Raise unless ``t`` is a contiguous float32 tensor of ``shape``
-    (``None`` entries match any size)."""
-    if t.dtype != torch.float32:
+    """Raise unless ``t`` is a contiguous float32 tensor of exactly
+    ``shape``."""
+    if t.dtype is F32 and t.shape == shape and t.is_contiguous():
+        return
+    if t.dtype != F32:
         raise TypeError(f"{name}: float32 required, got {t.dtype}")
-    if t.dim() != len(shape) or any(
-            s is not None and s != d for s, d in zip(shape, t.shape)):
+    if t.shape != shape:
         raise ValueError(f"{name}: shape {tuple(t.shape)} does not match "
-                         f"{shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: contiguous tensor required")
+                         f"{tuple(shape)}")
+    raise ValueError(f"{name}: contiguous tensor required")
 
 
 def raise_on_error(rc: int, kernel: str) -> None:

@@ -38,29 +38,45 @@ def gradients_plain(img: torch.Tensor):
     return gx, gy
 
 
-def halfsample(img: torch.Tensor) -> torch.Tensor:
-    if _build.is_cpu(img):
-        return halfsample_plain(img)
-    _build.check(img, "img", (None, None))
-    H, W = img.shape
-    out = torch.empty((H // 2, W // 2), dtype=img.dtype, device=img.device)
-    lib = _build.load_library()
-    _build.raise_on_error(lib.svo_halfsample(
-        img.data_ptr(), out.data_ptr(), H, W, _build.stream()), "halfsample")
+def halfsample(img: torch.Tensor, out: torch.Tensor | None = None
+               ) -> torch.Tensor:
+    """2×2 mean of ``img`` (H,W) → (H//2, W//2), written into ``out`` when
+    given (a contiguous float32 tensor of that shape)."""
+    if _build.plain(img, out):
+        half = halfsample_plain(img)
+        return half if out is None else out.copy_(half)
+    H, W = img.shape[-2:]
+    _build.check(img, "img", (H, W))
+    if out is None:
+        out = torch.empty((H // 2, W // 2), dtype=img.dtype, device=img.device)
+    else:
+        _build.check(out, "out", (H // 2, W // 2))
+    _build.raise_on_error(_build.load_library().svo_halfsample(
+        img.data_ptr(), out.data_ptr(), H, W, _build.stream(img.device)),
+        "halfsample")
     LAUNCHES["halfsample"] += 1
     return out
 
 
-def gradients(img: torch.Tensor):
-    if _build.is_cpu(img):
-        return gradients_plain(img)
-    _build.check(img, "img", (None, None))
-    H, W = img.shape
-    gx = torch.empty_like(img)
-    gy = torch.empty_like(img)
-    lib = _build.load_library()
-    _build.raise_on_error(lib.svo_gradients(
-        img.data_ptr(), gx.data_ptr(), gy.data_ptr(), H, W, _build.stream()),
-        "gradients")
+def gradients(img: torch.Tensor, out: torch.Tensor | None = None):
+    """Central differences (gx, gy) of ``img`` (H,W), written into the two
+    planes of ``out`` (2,H,W) when given."""
+    if _build.plain(img, out):
+        grads = gradients_plain(img)
+        if out is None:
+            return grads
+        out[0].copy_(grads[0])
+        out[1].copy_(grads[1])
+        return out[0], out[1]
+    H, W = img.shape[-2:]
+    _build.check(img, "img", (H, W))
+    if out is None:
+        out = torch.empty((2, H, W), dtype=img.dtype, device=img.device)
+    else:
+        _build.check(out, "out", (2, H, W))
+    gx, gy = out[0], out[1]
+    _build.raise_on_error(_build.load_library().svo_gradients(
+        img.data_ptr(), gx.data_ptr(), gy.data_ptr(), H, W,
+        _build.stream(img.device)), "gradients")
     LAUNCHES["gradients"] += 1
     return gx, gy

@@ -16,7 +16,7 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 
 from ..config import SvoConfig
-from . import interp, solve
+from . import interp, pyramid, solve
 
 
 class KltTemplate(NamedTuple):
@@ -41,9 +41,8 @@ def make_template(levels: Sequence[torch.Tensor],
     eye2 = torch.eye(2, dtype=uv.dtype, device=uv.device)
     for lv in range(cfg.klt_levels):
         uv_l = uv * (1.0 / (2 ** lv))
-        t = interp.sample_patch(levels[lv], uv_l, P)
-        gu = interp.sample_patch(gxs[lv], uv_l, P)
-        gv = interp.sample_patch(gys[lv], uv_l, P)
+        t, gu, gv = interp.sample_patch(          # one B3 launch
+            pyramid.level_planes(levels[lv], gxs[lv], gys[lv]), uv_l, P)
         J = torch.stack([gu, gv], -1)                       # (N, P2, 2)
         H = torch.einsum("npi,npj->nij", J, J) + 1e-3 * eye2
         hinvs.append(solve.inv2x2(H))

@@ -31,7 +31,41 @@ def gradients(img: torch.Tensor):
 
 
 def build_with_gradients(img: torch.Tensor, num_levels: int):
-    """Pyramid plus per-level gradient maps: (levels, grads_x, grads_y)."""
-    levels = build(img, num_levels)
-    grads = [gradients(lv) for lv in levels]
-    return (levels, tuple(g[0] for g in grads), tuple(g[1] for g in grads))
+    """Pyramid plus per-level gradient maps: (levels, grads_x, grads_y).
+
+    Each level lives in one (3,h,w) buffer [image, gx, gy] (B1 and B2 write
+    into its planes), so a template builder samples all three with one B3
+    launch through :func:`level_planes`."""
+    buf = torch.empty((3,) + tuple(img.shape), dtype=img.dtype,
+                      device=img.device)
+    buf[0].copy_(img)
+    bufs = [buf]
+    for _ in range(num_levels - 1):
+        h, w = bufs[-1].shape[1:]
+        nxt = torch.empty((3, h // 2, w // 2), dtype=img.dtype,
+                          device=img.device)
+        pyramid_kernel.halfsample(bufs[-1][0], out=nxt[0])
+        bufs.append(nxt)
+    for b in bufs:
+        pyramid_kernel.gradients(b[0], out=b[1:])
+    return (tuple(b[0] for b in bufs), tuple(b[1] for b in bufs),
+            tuple(b[2] for b in bufs))
+
+
+def level_planes(img: torch.Tensor, gx: torch.Tensor,
+                 gy: torch.Tensor) -> torch.Tensor:
+    """(3,h,w) [img, gx, gy] of one level: a view of the buffer
+    :func:`build_with_gradients` keeps the level in, or a stacked copy when
+    the three maps were built apart."""
+    n, size = img.numel(), img.element_size()
+    if (img.is_contiguous() and gx.is_contiguous() and gy.is_contiguous()
+            and img.dtype == gx.dtype == gy.dtype
+            and img.shape == gx.shape == gy.shape
+            and gx.data_ptr() == img.data_ptr() + n * size
+            and gy.data_ptr() == img.data_ptr() + 2 * n * size
+            and img.untyped_storage().data_ptr()
+            == gx.untyped_storage().data_ptr()
+            == gy.untyped_storage().data_ptr()):
+        return img.as_strided((3,) + tuple(img.shape),
+                              (n,) + tuple(img.stride()))
+    return torch.stack([img, gx, gy])

@@ -182,7 +182,8 @@ def test_one_frame_with_affine_warp_from_reference_state(affine_run):
     assert st_np.klt_tmpl.big.shape == (3, 130, 256)
     assert st_np.klt_tmpl.big_ok.any()
     new_st, out, _ = step.make_step(CFG)(
-        state_mod.state_from_numpy(st_np), _t(affine_run["lefts"][k]),
+        state_mod.state_from_numpy(st_np, device="cpu"),
+        _t(affine_run["lefts"][k]),
         _t(affine_run["rights"][k]))
     ref_out, ref_st = affine_run["outs"][k], affine_run["states"][k + 1]
     np.testing.assert_allclose(out.T_wc.numpy(), ref_out.T_wc, atol=5e-5)
@@ -197,7 +198,7 @@ def test_one_frame_with_affine_warp_from_reference_state(affine_run):
 def test_affine_run_tracks_like_reference(affine_run):
     """The port's runner with warped templates over the same 8 frames."""
     traj, metrics = runner.run_sequence(CFG, affine_run["lefts"],
-                                        affine_run["rights"])
+                                        affine_run["rights"], device="cpu")
     ref_traj = np.stack([o.T_wc for o in affine_run["outs"]])
     assert metrics["tracking_ok"].all()
     pos_err = np.linalg.norm(traj[:, :, 3] - ref_traj[:, :, 3], axis=-1)
@@ -206,6 +207,6 @@ def test_affine_run_tracks_like_reference(affine_run):
     # the same config without the warp differs: the warp really ran
     plain, plain_metrics = runner.run_sequence(dataclasses.replace(
         CFG, klt_affine_warp=False), affine_run["lefts"][:4],
-        affine_run["rights"][:4])
+        affine_run["rights"][:4], device="cpu")
     assert np.abs(plain[1:4] - traj[1:4]).max() > 1e-7
     assert not plain_metrics["n_warped"].any()

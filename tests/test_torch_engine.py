@@ -69,7 +69,7 @@ def test_renderer_matches_reference():
         jT = jsynth.trajectory_pose(jnp.asarray(t, jnp.float32), "arc")
         np.testing.assert_allclose(T.numpy(), np.asarray(jT), atol=1e-6)
         left, right = synthetic.render_stereo(
-            cam, T, synthetic.default_scene(0))
+            cam, T, synthetic.default_scene(0, device="cpu"))
         jl, jr = jsynth.render_stereo(JCFG.camera, jT,
                                       jsynth.default_scene(0))
         # 24 float32 sines of texture phases up to ~100 rad: the two sine
@@ -81,7 +81,8 @@ def test_renderer_matches_reference():
 
 
 def test_make_sequence_shapes_and_poses():
-    lefts, rights, poses = synthetic.make_sequence(CFG.camera, 3, dt=DT)
+    lefts, rights, poses = synthetic.make_sequence(CFG.camera, 3, dt=DT,
+                                                   device="cpu")
     assert lefts.shape == rights.shape == (3, 240, 376)
     assert poses.shape == (3, 3, 4)
     assert torch.all(torch.isfinite(lefts))
@@ -109,7 +110,7 @@ def test_keyframe_insert_on_reference_state(reference_run):
         *(tuple(map(jnp.asarray, lv)) for lv in pyr), jnp.asarray(img_r),
         jnp.asarray(T_cw)))
     ours = keyframe.insert(
-        CFG, state_mod.state_from_numpy(st_np),
+        CFG, state_mod.state_from_numpy(st_np, device="cpu"),
         *(tuple(torch.from_numpy(np.array(a)) for a in lv) for lv in pyr),
         torch.from_numpy(np.array(img_r)), torch.from_numpy(np.array(T_cw)))
     ours = state_mod.state_to_numpy(ours)
@@ -142,7 +143,7 @@ def test_keyframe_insert_on_reference_state(reference_run):
 def test_one_frame_from_reference_state(reference_run, k):
     """Hand the JAX state after frame k-1 to the port's step; frame k must
     agree (k=13 runs the keyframe phase)."""
-    st = state_mod.state_from_numpy(reference_run["states"][k])
+    st = state_mod.state_from_numpy(reference_run["states"][k], device="cpu")
     new_st, out, flags = step.make_step(CFG)(
         st, torch.from_numpy(np.array(reference_run["lefts"][k])),
         torch.from_numpy(np.array(reference_run["rights"][k])))
@@ -179,7 +180,7 @@ def test_one_frame_with_the_smaller_knobs(reference_run):
         jax.tree.map(jnp.asarray, reference_run["states"][k]),
         jnp.asarray(l), jnp.asarray(r))
     new_st, out, _ = step.make_step(cfg)(
-        state_mod.state_from_numpy(reference_run["states"][k]),
+        state_mod.state_from_numpy(reference_run["states"][k], device="cpu"),
         torch.from_numpy(np.array(l)), torch.from_numpy(np.array(r)))
     assert not bool(ref_out.kf_inserted) and not bool(out.kf_inserted)
     np.testing.assert_allclose(out.T_wc.numpy(), np.asarray(ref_out.T_wc),
@@ -194,7 +195,7 @@ def test_one_frame_with_the_smaller_knobs(reference_run):
 
 def test_slice_end_to_end_against_reference(reference_run):
     """The port's StereoSvo and the JAX step on the same frames."""
-    svo = runner.StereoSvo(CFG)
+    svo = runner.StereoSvo(CFG, device="cpu")
     for l, r in zip(reference_run["lefts"], reference_run["rights"]):
         svo.new_image(l, r)
     traj, metrics = svo.trajectory(), svo.metrics()
@@ -217,17 +218,41 @@ def test_runner_rejects_unported_knobs_and_missing_cuda():
 
     from stereo_svo_tpu_torch.config import kitti_config, stress_config
     with pytest.raises(NotImplementedError):
-        runner.StereoSvo(dataclasses.replace(CFG, online_loop_every=4))
+        runner.StereoSvo(dataclasses.replace(CFG, online_loop_every=4),
+                         device="cpu")
     # every configuration the config module ships builds unchanged
     for cfg in (SvoConfig(), kitti_config(), stress_config(),
                 SvoConfig(klt_affine_warp=True), SvoConfig(dtype="bfloat16")):
         step.make_step(cfg)
     for kw in (dict(mem_retention="fifo"), dict(epi_samples=16),
                dict(klt_affine_warp=True), dict(dtype="bfloat16")):
-        runner.StereoSvo(dataclasses.replace(CFG, **kw))
+        runner.StereoSvo(dataclasses.replace(CFG, **kw), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             runner.StereoSvo(CFG, device="cuda")
+
+
+def test_entry_points_default_to_the_card():
+    """With no device named, the entry points run on the card: without
+    one they raise (no fallback to the CPU); with one, the state lives
+    there."""
+    if not torch.cuda.is_available():
+        frames = np.zeros((1, 240, 376), np.float32)
+        with pytest.raises(RuntimeError):
+            runner.StereoSvo(SvoConfig())
+        with pytest.raises(RuntimeError):
+            runner.run_sequence(CFG, frames, frames)
+        with pytest.raises(RuntimeError):
+            state_mod.init_state(CFG)
+        with pytest.raises(RuntimeError):
+            synthetic.make_sequence(CFG.camera, 1)
+        return
+    svo = runner.StereoSvo(SvoConfig())
+    assert svo.state.T_cw.device.type == "cuda"
+    lefts, rights, _ = synthetic.make_sequence(CFG.camera, 2, dt=DT)
+    assert lefts.device.type == "cuda"
+    traj, metrics = runner.run_sequence(CFG, lefts, rights)
+    assert traj.shape == (2, 3, 4) and metrics["tracking_ok"].all()
 
 
 def test_bfloat16_knob_gives_the_float32_result(reference_run):
@@ -239,7 +264,7 @@ def test_bfloat16_knob_gives_the_float32_result(reference_run):
     l, r = (torch.from_numpy(np.array(reference_run[k][13]))
             for k in ("lefts", "rights"))
     outs = [step.make_step(dataclasses.replace(CFG, dtype=dt))(
-        state_mod.state_from_numpy(st), l, r)
+        state_mod.state_from_numpy(st, device="cpu"), l, r)
         for dt in ("float32", "bfloat16")]
     (st32, out32, _), (st16, out16, _) = outs
     assert bool(out32.kf_inserted)
@@ -273,7 +298,8 @@ def test_run_window_ba_on_reference_state(reference_run, jax_window_ba):
     st_np = _inserted_state(reference_run)
     ref = _np(jax_window_ba(jax.tree.map(jnp.asarray, st_np)))
     ours = state_mod.state_to_numpy(
-        step.run_window_ba(CFG, state_mod.state_from_numpy(st_np)))
+        step.run_window_ba(CFG, state_mod.state_from_numpy(st_np,
+                                                           device="cpu")))
     assert ref.ba_diag[5] == 1.0 and ours["ba_diag"][5] == 1.0, "accepted"
     assert ours["ba_diag"][6] == ref.ba_diag[6] > 100        # n_obs
     # five float32 Gauss-Newton steps whose einsums contract in another
@@ -301,7 +327,8 @@ def test_window_ba_guard_rejects_corrupted_observations(reference_run,
         0, CFG.camera.width, st_np.obs_uv.shape).astype(np.float32))
     ref = _np(jax_window_ba(jax.tree.map(jnp.asarray, bad)))
     ours = state_mod.state_to_numpy(
-        step.run_window_ba(CFG, state_mod.state_from_numpy(bad)))
+        step.run_window_ba(CFG, state_mod.state_from_numpy(bad,
+                                                           device="cpu")))
     # both solvers propose a metres-long jump and the trust region
     # (ba_trust_t = 0.1 m) rejects it
     assert ours["ba_diag"][5] == ref.ba_diag[5] == 0.0
@@ -324,7 +351,8 @@ def test_window_ba_trust_clamp_on_reference_state(reference_run):
     ref = _np(jax.jit(lambda s: jstep.run_window_ba(jcfg, s))(
         jax.tree.map(jnp.asarray, bad)))
     ours = state_mod.state_to_numpy(
-        step.run_window_ba(cfg, state_mod.state_from_numpy(bad)))
+        step.run_window_ba(cfg, state_mod.state_from_numpy(bad,
+                                                           device="cpu")))
     assert ours["ba_diag"][5] == ref.ba_diag[5] == 1.0   # cost dropped
     # the newest keyframe's metres-long proposal shrinks to ~the trust
     # radius (the twist is scaled, so the move is not exactly 0.1 m)

@@ -128,7 +128,7 @@ def road_run():
 def test_kitti_road_run_against_reference(road_run):
     assert CFG.epi_samples == 16 and CFG.use_ba
     traj, metrics = runner.run_sequence(CFG, road_run["lefts"],
-                                        road_run["rights"])
+                                        road_run["rights"], device="cpu")
     ref_traj = np.stack([o.T_wc for o in road_run["outs"]])
     ref_epi = np.array([int(o.n_epi_recovered) for o in road_run["outs"]])
     assert metrics["tracking_ok"].all()
@@ -156,7 +156,7 @@ def test_one_frame_epipolar_from_reference_state(road_run):
     seeds, the port's step recovers the same seeds and updates them alike."""
     epi = [int(o.n_epi_recovered) for o in road_run["outs"]]
     k = next(i for i, n in enumerate(epi) if n > 0)
-    st = state_mod.state_from_numpy(road_run["states"][k])
+    st = state_mod.state_from_numpy(road_run["states"][k], device="cpu")
     new_st, out, _ = step.make_step(CFG)(
         st, _t(road_run["lefts"][k]), _t(road_run["rights"][k]))
     ref_out, ref_st = road_run["outs"][k], road_run["states"][k + 1]

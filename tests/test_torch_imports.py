@@ -1,23 +1,30 @@
 """The port stands alone: no module of ``stereo_svo_tpu_torch`` (nor
-``chip_smoke.py``) imports jax or the ``stereo_svo_tpu`` package; the only
-link is the two numpy-only files loaded by path (config.py, eval/ate.py).
+``chip_smoke.py``) imports jax or the ``stereo_svo_tpu`` package, loads a
+file by path, or names a path into ``stereo_svo_tpu/``.
 
 An AST scan, plus an import of every port module in a fresh interpreter
-where jax and the reference package cannot be imported (a start-up hook
-of the test environment may import jax, so checking ``sys.modules`` alone
-proves nothing).
+where jax and the reference package cannot be imported, after which no
+loaded module may come from a file under ``stereo_svo_tpu/`` (a start-up
+hook of the test environment may import jax, so checking ``sys.modules``
+for names alone proves nothing).
 """
 
 import ast
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "stereo_svo_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "stereo_svo_tpu")
-SHARED_FILES = {"config.py", "eval/ate.py"}
+# ways to execute a file by path instead of importing a module
+LOADERS = ("spec_from_file_location", "SourceFileLoader", "run_path",
+           "exec_module", "load_source")
+# a string that is a path into the reference package ("stereo_svo_tpu",
+# "stereo_svo_tpu/config.py"); "file:line" labels and prose do not match
+REF_PATH = re.compile(r"^(\./)?stereo_svo_tpu(/[\w./-]*)?$")
 
 
 def _sources():
@@ -46,11 +53,14 @@ def _offences(path):
         for name in names:
             if _forbidden(name):
                 yield f"{path.relative_to(ROOT)}:{node.lineno} imports {name}"
-        if (isinstance(node, ast.Call)
-                and getattr(node.func, "id", "") == "load_reference_file"
-                and node.args[0].value not in SHARED_FILES):
-            yield (f"{path.relative_to(ROOT)}:{node.lineno} loads "
-                   f"{node.args[0].value}")
+        where = f"{path.relative_to(ROOT)}:{getattr(node, 'lineno', 0)}"
+        if isinstance(node, (ast.Name, ast.Attribute)):
+            name = getattr(node, "id", getattr(node, "attr", ""))
+            if name in LOADERS:
+                yield f"{where} uses {name}"
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and REF_PATH.match(node.value)):
+            yield f"{where} names the path {node.value!r}"
 
 
 def test_no_jax_or_reference_imports():
@@ -61,7 +71,7 @@ def test_no_jax_or_reference_imports():
 
 
 _BLOCKED_IMPORT = r"""
-import importlib, importlib.abc, pkgutil, sys
+import importlib, importlib.abc, os, pkgutil, sys
 for m in list(sys.modules):
     if m.split(".")[0] in ("jax", "jaxlib", "stereo_svo_tpu"):
         del sys.modules[m]
@@ -71,11 +81,17 @@ class Block(importlib.abc.MetaPathFinder):
             raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, Block())
 import stereo_svo_tpu_torch
+import chip_smoke
 n = 0
 for info in pkgutil.walk_packages(stereo_svo_tpu_torch.__path__,
                                   "stereo_svo_tpu_torch."):
     importlib.import_module(info.name)
     n += 1
+ref = os.path.join(os.getcwd(), "stereo_svo_tpu") + os.sep
+loaded = [m for m, mod in list(sys.modules.items())
+          if os.path.abspath(getattr(mod, "__file__", None) or "")
+          .startswith(ref)]
+assert not loaded, loaded
 print("imported", n)
 """
 

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from stereo_svo_tpu_torch.ops import pyramid
 from stereo_svo_tpu_torch.ops.kernels import align_kernel, pyramid_kernel
 
 try:
@@ -110,6 +111,62 @@ def test_sample_patches_plain_matches_pallas_interior(P):
     np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=2e-3)
 
 
+@pytest.mark.parametrize("K", [1, 3])
+@pytest.mark.parametrize("P", [4, 8, 16])
+def test_sample_patches_plain_stacked_planes(K, P):
+    """A (K,H,W) input samples every plane at the same centres: each plane
+    equals its own single-image call bit for bit, the JAX gather sampler at
+    border centres and (P ≤ 8: the Pallas window is 16 rows) the Pallas
+    kernel at interior centres."""
+    rng = np.random.default_rng(20 + K + P)
+    imgs = np.stack([_img(30 + k) for k in range(K)])
+    edge = _border_centres(64, 256, 48, seed=P)
+    inner = np.stack([rng.uniform(P + 2, 256 - P - 2, 48),
+                      rng.uniform(P + 2, 64 - P - 2, 48)], -1)
+    uv = np.concatenate([edge, inner]).astype(np.float32).reshape(8, 12, 2)
+    out = align_kernel.sample_patches_plain(_t(imgs), _t(uv), P)
+    assert out.shape == (K, 8, 12, P * P)
+    for k in range(K):
+        single = align_kernel.sample_patches_plain(_t(imgs[k]), _t(uv), P)
+        assert torch.equal(out[k], single)
+        ref = np.asarray(jinterp.sample_patch(
+            jnp.asarray(imgs[k]), jnp.asarray(uv.reshape(-1, 2)), P,
+            method="gather")).reshape(8, 12, P * P)
+        np.testing.assert_allclose(out[k].numpy(), ref, atol=1e-4)
+        if P <= 8:
+            pallas = np.asarray(pallas_align.sample_patches(
+                jnp.asarray(imgs[k]), jnp.asarray(inner.astype(np.float32)),
+                P, interpret=INTERPRET))
+            np.testing.assert_allclose(out[k].reshape(96, -1)[48:].numpy(),
+                                       pallas, rtol=1e-5, atol=2e-3)
+    # the wrapper takes the plain version on the CPU, stacked too
+    assert torch.equal(align_kernel.sample_patches(_t(imgs), _t(uv), P), out)
+
+
+def test_pyramid_levels_share_one_buffer_per_level():
+    """build_with_gradients keeps each level's image, gx and gy in one
+    (3,h,w) buffer, which level_planes hands to B3 as a view; the maps
+    match the JAX pyramid."""
+    img = _img(40, 61, 93)
+    levels, gxs, gys = pyramid.build_with_gradients(_t(img), 3)
+    jl, jgx, jgy = jpyramid.build_with_gradients(jnp.asarray(img), 3)
+    for lv in range(3):
+        np.testing.assert_allclose(levels[lv].numpy(), np.asarray(jl[lv]),
+                                   atol=3e-5)
+        np.testing.assert_allclose(gxs[lv].numpy(), np.asarray(jgx[lv]),
+                                   atol=3e-5)
+        np.testing.assert_allclose(gys[lv].numpy(), np.asarray(jgy[lv]),
+                                   atol=3e-5)
+        planes = pyramid.level_planes(levels[lv], gxs[lv], gys[lv])
+        assert planes.data_ptr() == levels[lv].data_ptr()   # a view
+        assert torch.equal(planes, torch.stack([levels[lv], gxs[lv],
+                                                gys[lv]]))
+    # maps built apart are stacked (a copy)
+    apart = pyramid.level_planes(levels[1].clone(), gxs[1], gys[1])
+    assert torch.equal(apart, pyramid.level_planes(levels[1], gxs[1],
+                                                   gys[1]))
+
+
 # ---- B4: fused Gauss-Newton accumulation ------------------------------------
 
 def _gn_inputs(seed, N=48, P=4):
@@ -129,7 +186,7 @@ def test_gn_accumulate_plain_matches_pallas():
     w = (np.random.default_rng(6).uniform(size=48) > 0.25).astype(np.float32)
     H, g, cost, n_eff, _ = align_kernel.gn_accumulate_plain(
         _t(img), _t(uv), _t(tmpl), _t(jac), _t(w), P, k,
-        torch.tensor([a_il, b_il]))
+        torch.tensor(a_il), torch.tensor(b_il))
     jH, jg, jcost, jn = pallas_align.gn_accumulate(
         jnp.asarray(img), jnp.asarray(uv), jnp.asarray(tmpl),
         jnp.asarray(jac), jnp.asarray(w), P, k, a_il=a_il, b_il=b_il,
@@ -172,7 +229,7 @@ def test_gn_accumulate_plain_matches_f64_oracle():
     mask = _pixel_mask(9)
     out = align_kernel.gn_accumulate_plain(
         _t(img), _t(uv), _t(tmpl), _t(jac), _t(mask), P, k,
-        torch.tensor([a_il, b_il]))
+        torch.tensor(a_il), torch.tensor(b_il))
     H_o, g_o, cost_o, n_o, inl_o = _gn_oracle(img, uv, tmpl, jac, mask, P,
                                               k, a_il, b_il)
     np.testing.assert_allclose(out[0].numpy(), H_o, rtol=2e-4, atol=5e-3)
@@ -232,20 +289,21 @@ def test_cuda_sample_patches(cuda_device, P):
 @pytest.mark.parametrize("N", [192, 240, 2048, 4096])
 def test_cuda_gn_accumulate(cuda_device, N):
     """Main-path (192), KITTI (240) and stress (2048) widths: 12, 15 and
-    128 pass-1 blocks; 4096 runs past the 128-block cap (grid-stride)."""
+    128 blocks; 4096 runs past the 128-block cap (grid-stride)."""
     P, k = 4, 8.0
     img, uv, tmpl, jac = _gn_inputs(12, N=N)
     args = [_t(a, cuda_device) for a in (img, uv, tmpl, jac,
                                          _pixel_mask(13, N=N))]
-    ab = torch.tensor([1.3, -7.0], device=cuda_device)
-    ours = align_kernel.gn_accumulate(*args, P, k, ab)
-    plain = align_kernel.gn_accumulate_plain(*args, P, k, ab)
+    ab = (torch.tensor(1.3, device=cuda_device),
+          torch.tensor(-7.0, device=cuda_device))
+    ours = align_kernel.gn_accumulate(*args, P, k, *ab)
+    plain = align_kernel.gn_accumulate_plain(*args, P, k, *ab)
     # float32 sums of N·16 terms in two different orders
     torch.testing.assert_close(ours[0], plain[0], rtol=1e-4, atol=1e-2)
     torch.testing.assert_close(ours[1], plain[1], rtol=1e-4, atol=1e-1)
     torch.testing.assert_close(ours[2], plain[2], rtol=1e-4, atol=0)
     torch.testing.assert_close(ours[3:], plain[3:], rtol=0, atol=0)
-    again = align_kernel.gn_accumulate(*args, P, k, ab)
+    again = align_kernel.gn_accumulate(*args, P, k, *ab)
     for a, b in zip(ours, again):           # no atomics: bit for bit
         assert torch.equal(a, b)
 
@@ -282,3 +340,94 @@ def test_cuda_sample_patches_new_shapes(cuda_device, shape, N, P):
     torch.testing.assert_close(
         align_kernel.sample_patches(img, uv, P),
         align_kernel.sample_patches_plain(img, uv, P), rtol=0, atol=1e-4)
+
+
+# chip_smoke.py phase 2's B3 shapes: (image h, w), centres, P, planes
+PHASE2_B3 = [((480, 752), 192, 8, 1),     # KLT, every iteration
+             ((480, 752), 192, 4, 1),     # alignment passes
+             ((480, 752), 192, 4, 3),     # alignment template: img, gx, gy
+             ((480, 752), 192, 8, 3),     # KLT template on keyframes
+             ((188, 620), 3840, 8, 1),    # epipolar probes
+             ((480, 752), 192, 16, 1),    # oversized affine-KLT templates
+             ((376, 1241), 240, 8, 1),    # KITTI KLT
+             ((480, 752), 2048, 8, 1)]    # stress KLT
+
+
+def _hazard_centres(h, w, P, n, seed):
+    """Centres whose first tap sits one rounding step from an integer near
+    a power of two (u = c + offset may round onto the next pixel), then
+    border centres, then interior ones: n in all."""
+    rng = np.random.default_rng(seed)
+    near = []
+    for b in (32, 64, 128, 256, 512, 1024):
+        c = np.float32(b) + np.float32((P - 1) / 2.0)
+        for x in (np.nextafter(c, np.float32(0)), c,
+                  np.nextafter(c, np.float32(4096))):
+            if b + P + 2 < w:
+                near.append([x, h / 2.0])
+            if b + P + 2 < h:
+                near.append([w / 2.0, x])
+    inner = np.stack([rng.uniform(0, w - 1, n), rng.uniform(0, h - 1, n)],
+                     -1)
+    return np.concatenate([np.asarray(near), _border_centres(h, w, n // 4,
+                                                             seed),
+                           inner])[:n].astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,N,P,K", PHASE2_B3)
+def test_cuda_sample_patches_stacked_exact(cuda_device, shape, N, P, K):
+    """B3 at every phase-2 shape, one to three planes per launch: bit for
+    bit the plain version, border and rounding-hazard centres included."""
+    h, w = shape
+    imgs = _t(np.stack([_img(50 + k, h, w) for k in range(K)]), cuda_device)
+    img = imgs if K > 1 else imgs[0]
+    uv = _t(_hazard_centres(h, w, P, N, seed=N + P), cuda_device)
+    before = align_kernel.LAUNCHES["sample_patches"]
+    ours = align_kernel.sample_patches(img, uv, P)
+    torch.cuda.synchronize()
+    assert align_kernel.LAUNCHES["sample_patches"] == before + 1
+    assert torch.equal(ours, align_kernel.sample_patches_plain(img, uv, P))
+
+
+def _gn_args(N, device, seed=12):
+    img, uv, tmpl, jac = _gn_inputs(seed, N=N)
+    return [_t(a, device) for a in (img, uv, tmpl, jac,
+                                     _pixel_mask(seed + 1, N=N))]
+
+
+@pytest.mark.cuda
+def test_cuda_gn_accumulate_repeats_across_widths(cuda_device):
+    """Back-to-back calls at N = 192, 2048, 192, 2048 on one stream: each
+    repeats its first result bit for bit (the ticket counter is back at 0
+    after every call, whatever the grid of the call before)."""
+    ab = (torch.tensor(1.3, device=cuda_device),
+          torch.tensor(-7.0, device=cuda_device))
+    args = {N: _gn_args(N, cuda_device) for N in (192, 2048)}
+    outs = [align_kernel.gn_accumulate(*args[N], 4, 8.0, *ab)
+            for N in (192, 2048, 192, 2048)]
+    torch.cuda.synchronize()
+    for first, again in ((outs[0], outs[2]), (outs[1], outs[3])):
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+    fresh = align_kernel.gn_accumulate(*args[192], 4, 8.0, *ab)
+    assert all(torch.equal(a, b) for a, b in zip(outs[0], fresh))
+
+
+@pytest.mark.cuda
+def test_cuda_gn_accumulate_is_one_launch(cuda_device):
+    """One CUDA kernel per call in a profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+    ab = (torch.tensor(1.3, device=cuda_device),
+          torch.tensor(-7.0, device=cuda_device))
+    args = _gn_args(192, cuda_device)
+    align_kernel.gn_accumulate(*args, 4, 8.0, *ab)     # scratch, warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            align_kernel.gn_accumulate(*args, 4, 8.0, *ab)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 3, kernels
+    assert all("gn_accumulate_kernel" in k for k in kernels), kernels

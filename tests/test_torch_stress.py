@@ -18,7 +18,7 @@ def test_stress_config_shape():
     cfg = stress_config()
     assert cfg.num_levels == 5 and cfg.max_features >= 2048
     assert cfg.grid_rows * cfg.grid_cols >= 2048
-    st = state_mod.init_state(cfg)
+    st = state_mod.init_state(cfg, device="cpu")
     assert st.klt_tmpl.patches.shape == (3, 2048, 64)
     assert st.tmpl.patches.shape == (3, 2048, 16)   # align levels 1-3
     assert st.obs_uv.shape == (10, 2048, 2)
@@ -33,8 +33,9 @@ def test_many_seeds_five_levels_tracks():
         stereo_max_disp=48, kf_min_tracked=150, border_margin=10,
         klt_levels=3, max_keyframes=4)
     lefts, rights, _ = synthetic.make_sequence(cfg.camera, 6, dt=0.1,
-                                               kind="arc", seed=2)
-    _, m = runner.run_sequence(cfg, lefts, rights)
+                                               kind="arc", seed=2,
+                                               device="cpu")
+    _, m = runner.run_sequence(cfg, lefts, rights, device="cpu")
     assert m["tracking_ok"].all()
     # large active population from the bootstrap keyframe
     assert int(m["n_seeds"][0] + m["n_landmarks"][0]) > 300

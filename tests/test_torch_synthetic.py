@@ -51,7 +51,8 @@ def test_scene_renders_match_reference(scene_kind, traj, t, aa):
     T = synthetic.trajectory_pose(torch.tensor(t), traj)
     jT = jsynth.trajectory_pose(jnp.asarray(t, jnp.float32), traj)
     ours = synthetic.render_stereo(CameraConfig(**kw), T,
-                                   synthetic.get_scene(scene_kind, 3), aa=aa)
+                                   synthetic.get_scene(scene_kind, 3,
+                                                       device="cpu"), aa=aa)
     ref = jsynth.render_stereo(JCam(**kw), jT,
                                jsynth.get_scene(scene_kind, 3), aa=aa)
     for o, r in zip(ours, ref):
@@ -63,7 +64,8 @@ def test_dynamic_scene_moves_and_matches_reference():
     jT = jsynth.trajectory_pose(jnp.asarray(0.5, jnp.float32), "arc")
     imgs = []
     for t in (0.0, 6.0):
-        ours = synthetic.render_view(CAM, T, synthetic.dynamic_scene(0, t))
+        ours = synthetic.render_view(
+            CAM, T, synthetic.dynamic_scene(0, t, device="cpu"))
         _assert_render_close(ours, jsynth.render_view(
             JC, jT, jsynth.dynamic_scene(0, t)), spheres=True)
         imgs.append(ours.numpy())
@@ -91,7 +93,7 @@ def test_gt_depth_matches_reference():
         T = synthetic.trajectory_pose(torch.tensor(t), "arc")
         jT = jsynth.trajectory_pose(jnp.asarray(t, jnp.float32), "arc")
         z = synthetic.gt_depth(CAM, T, torch.from_numpy(uv),
-                               synthetic.get_scene(kind, 1)).numpy()
+                               synthetic.get_scene(kind, 1, device="cpu")).numpy()
         jz = np.asarray(jsynth.gt_depth(JC, jT, jnp.asarray(uv),
                                         jsynth.get_scene(kind, 1)))
         # sphere depths: the quadratic's cancellation (module docstring)
@@ -123,9 +125,10 @@ def test_make_sequence_options():
     kw = dict(fx=80.0, fy=80.0, cx=48.0, cy=32.0, baseline=0.11, width=96,
               height=64)
     cam = CameraConfig(**kw)
-    args = dict(n_frames=2, dt=0.25, kind="arc", seed=2)
+    args = dict(n_frames=2, dt=0.25, kind="arc", seed=2, device="cpu")
     ours = synthetic.make_sequence(cam, **args, motion_blur=0.5)
-    ref = jsynth.make_sequence(JCam(**kw), **args, motion_blur=0.5)
+    ref = jsynth.make_sequence(JCam(**kw), n_frames=2, dt=0.25, kind="arc",
+                               seed=2, motion_blur=0.5)
     for o, r in zip(ours[:2], ref[:2]):
         _assert_render_close(o, r)
     np.testing.assert_allclose(ours[2].numpy(), ref[2], atol=2e-6)
@@ -133,7 +136,7 @@ def test_make_sequence_options():
     dyn = synthetic.make_sequence(cam, **args, scene_kind="dynamic")
     for i in range(2):
         view = synthetic.render_stereo(cam, dyn[2][i], synthetic.dynamic_scene(
-            2, torch.tensor(i * 0.25)))
+            2, torch.tensor(i * 0.25), device="cpu"))
         assert torch.equal(dyn[0][i], view[0])
         assert torch.equal(dyn[1][i], view[1])
 
