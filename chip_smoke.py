@@ -8,8 +8,10 @@ Phases, one result line each, in order:
      torch/CUDA versions, the TF32 flags;
   1. build: the CUDA kernels from csrc/, timed;
   2. kernels: each of B1-B4 against its plain PyTorch version on the card
-     at every shape a shipped path gives it: B1/B2 exactly on every level
-     of the 752x480 (4 and 5 levels) and 1241x376 pyramids; B3 bit for bit
+     at every shape a shipped path gives it: B1 per pyramid (one launch
+     writes every level's image plane) and B1/B2 one level at a time,
+     exactly on every level of the 752x480 (4 and 5 levels) and 1241x376
+     pyramids, level 0 equal to the frame; B3 bit for bit
      at N=192 (P=8 KLT, P=4 alignment, and the K=3 template launches that
      sample a level's image, gx and gy together), at the epipolar-search
      shape (3,840 centres, P=8, 620x188), the affine-KLT big templates
@@ -26,9 +28,10 @@ Phases, one result line each, in order:
      from the row's shapes, with bound_by); library_call, library_ms,
      library_device_us, library_host_us and library_max_abs_err (one
      PyTorch call computing the same function, timed alone as the kernel
-     is; none for B4, library_reason says why); and, after the
-     paths ran, launches_per_frame of the kernel on the path that gives
-     it the shape;
+     is; for B1 the copy_ of the frame and L-1 chained avg_pool2d calls,
+     timed as one function; none for B4, library_reason says why); and,
+     after the paths ran, launches_per_frame of the kernel on the path that
+     gives it the shape (B1: 1.0 on every path, or the run fails);
   3. main path: SvoConfig() as shipped (window BA on) over the 100-frame
      synthetic arc sequence (752×480, dt 0.08, seed 0) rendered on the
      card, through StereoSvo(cfg, device="cuda").new_image; ATE and
@@ -88,13 +91,16 @@ SOURCES = {"halfsample": "stereo_svo_tpu_torch/csrc/pyramid.cu",
 # the CUDA functions each wrapper launches (as torch.profiler names them);
 # gn_partial_kernel/gn_final_kernel are the two-launch B4 of earlier trees,
 # which compare_kernels.py times
-KERNEL_FUNCTIONS = {"halfsample": ("halfsample_kernel",),
+# halfsample_kernel is the one-launch-per-level B1 of earlier trees
+KERNEL_FUNCTIONS = {"halfsample": ("pyramid_levels_kernel",
+                                   "halfsample_kernel"),
                     "gradients": ("gradients_kernel",),
                     "sample_patches": ("sample_patch_kernel",),
                     "gn_accumulate": ("gn_accumulate_kernel",
                                       "gn_partial_kernel", "gn_final_kernel")}
 LIBRARY_CALLS = {
-    "halfsample": "torch.nn.functional.avg_pool2d(x, 2)",
+    "halfsample": "copy_ of the frame, then L-1 chained "
+                  "torch.nn.functional.avg_pool2d(x, 2) calls",
     "gradients": "torch.nn.functional.conv2d, both stencils as two output "
                  "channels (compared on the interior)",
     "sample_patches": "torch.nn.functional.grid_sample(bilinear, border, "
@@ -106,10 +112,10 @@ NO_LIBRARY_CALL = ("no single PyTorch call computes the sample, the Huber "
                    "weight and the normal equations together")
 
 
-ROW_SUMMARY = ("name", "shape", "use", "path", "launches_per_frame",
-               "max_abs_err", "ms", "plain_ms", "device_us", "host_us",
-               "bound_us", "bound_by", "library_ms", "library_device_us",
-               "library_host_us", "library_max_abs_err")
+ROW_SUMMARY = ("name", "shape", "levels", "use", "path",
+               "launches_per_frame", "max_abs_err", "ms", "plain_ms",
+               "device_us", "host_us", "bound_us", "bound_by", "library_ms",
+               "library_device_us", "library_host_us", "library_max_abs_err")
 
 
 class SmokeFailure(RuntimeError):
@@ -272,10 +278,14 @@ def check_kernels(device, frame, kitti_frame):
     rows = []
 
     def record(name, kernel, plain, tol_abs, tol_rel, shape, path,
-               nbytes, flops, library=None, extra=None):
+               nbytes, flops, library=None, extra=None, outputs=None):
         """``library``: (the library call, timed alone; a function of its
-        output giving the (library, kernel) values compared) or None."""
+        output giving the (library, kernel) values compared) or None.
+        ``outputs``: what of the kernel's result is compared with the plain
+        version (default: all of it)."""
         out, ref = kernel(), plain()
+        if outputs is not None:
+            out = outputs(out)
         torch.cuda.synchronize()
         err_abs, err_rel = _max_err(out, ref)
         ok = err_abs <= tol_abs or err_rel <= tol_rel
@@ -311,7 +321,8 @@ def check_kernels(device, frame, kitti_frame):
         rows.append(row)
 
     def pyramid_case(image, path, levels, what):
-        """B1/B2 exact on every level of a pyramid; timed at level 0."""
+        """B1/B2 exact on every level of a pyramid, B1 built one level at a
+        time and in one launch; B1 timed per pyramid, B2 at level 0."""
         lv = image.contiguous()
         shapes = []
         for level in range(levels):
@@ -324,16 +335,40 @@ def check_kernels(device, frame, kitti_frame):
                 e = _max_err(half, pk.halfsample_plain(lv))[0]
                 require(e == 0.0, f"halfsample, {what} level {level}: {e}")
                 lv = half
+        before = pk.LAUNCHES["halfsample"]
+        bufs = pk.pyramid(image, levels)
+        torch.cuda.synchronize()
+        require(pk.LAUNCHES["halfsample"] == before + 1,
+                f"pyramid, {what}: {pk.LAUNCHES['halfsample'] - before} "
+                f"B1 launches, not 1")
+        require(torch.equal(bufs[0][0], image),
+                f"pyramid, {what}: level 0 is not the frame")
         h, w = image.shape
-        h2, w2 = h // 2, w // 2
+        coarse = sum(a * b for a, b in shapes[1:])
         x = image[None, None]
-        # the same additions in the same order, no fused multiply-add: exact
-        record("halfsample", lambda: pk.halfsample(image),
-               lambda: pk.halfsample_plain(image), 0.0, 0.0, [h, w], path,
-               4.0 * (4 * h2 * w2 + h2 * w2), 4.0 * h2 * w2,
-               (lambda: F.avg_pool2d(x, 2),
-                lambda y: (y[0, 0], pk.halfsample(image))),
-               {"levels_exact": shapes})
+
+        def library_chain():
+            out = [torch.empty_like(image).copy_(image)]
+            y = x
+            for _ in range(levels - 1):
+                y = F.avg_pool2d(y, 2)
+                out.append(y[0, 0])
+            return out
+
+        def image_planes(bufs):
+            return [b[0] for b in bufs]
+
+        # every level's image plane against the plain chain: the same
+        # additions in the same order, no fused multiply-add, so exact;
+        # bytes: the frame read once, level 0 and every coarser level
+        # written once
+        record("halfsample", lambda: pk.pyramid(image, levels),
+               lambda: pk.pyramid_plain(image, levels), 0.0, 0.0, [h, w],
+               path, 4.0 * (2 * h * w + coarse), 4.0 * coarse,
+               (library_chain,
+                lambda y: (y, image_planes(pk.pyramid(image, levels)))),
+               {"levels": levels, "levels_exact": shapes},
+               outputs=image_planes)
         stencil = torch.zeros(2, 1, 3, 3, device=image.device)
         stencil[0, 0, 1, 0], stencil[0, 0, 1, 2] = -0.5, 0.5
         stencil[1, 0, 0, 1], stencil[1, 0, 2, 1] = -0.5, 0.5
@@ -690,6 +725,9 @@ def main() -> int:
     # launches of each row's kernel on the path that gives it its shape
     paths = {"phase3": phase3, "phase4": phase4, "phase5": phase5,
              "phase6": phase6}
+    b1 = {k: p["launches_per_frame"]["halfsample"] for k, p in paths.items()}
+    require(all(v == 1.0 for v in b1.values()),
+            f"B1 launches per frame {b1}, not 1.0 (one per pyramid)")
     for row in rows:
         path = paths[row["path"]]
         row["launches"] = path["launches"][row["name"]]

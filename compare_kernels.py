@@ -16,7 +16,13 @@ change, parent.
 Prints one JSON line per row: tag, kernel, use, shape, ms (median CUDA
 event pair around one call), device_us and cuda_launches_per_call
 (torch.profiler over 200 back-to-back calls), host_us (host clock over
-200 back-to-back calls, no sync). A "template" row times the samples of one
+200 back-to-back calls, no sync). A "pyramid" row times the tree's own way
+of building a pyramid's image levels into its (3,h,w) level buffers: one
+``pyramid_kernel.pyramid`` call where the tree has it, else the allocations,
+the copy of level 0 and one half-sample launch per level, as that tree's
+``ops/pyramid.build_with_gradients`` does; a "build_with_gradients" row
+times the whole layer (B2 included). Both count every CUDA function they
+launch (the copy too). A "template" row times the samples of one
 template level (image, gx and gy at the same centres): one call on the
 (3,H,W) level buffer where the tree's B3 takes one, three calls where it
 does not. B4 rows call the wrapper as the tree's ``ops/align.py`` does
@@ -54,6 +60,7 @@ def main() -> int:
         print(f"FAIL: imported {port.__file__}, not the tree {tree}",
               file=sys.stderr)
         return 1
+    from stereo_svo_tpu_torch.ops import pyramid
     from stereo_svo_tpu_torch.ops.kernels import align_kernel as ak
     from stereo_svo_tpu_torch.ops.kernels import pyramid_kernel as pk
 
@@ -72,17 +79,35 @@ def main() -> int:
     stacked_b3 = hasattr(ak, "MAX_IMAGES")
     split_ab = len(inspect.signature(ak.gn_accumulate).parameters) == 9
 
-    def row(name, use, shape, fn):
+    def row(name, use, shape, fn, functions=None):
         dev_us, per_call, method = cs.device_us(
-            fn, cs.KERNEL_FUNCTIONS[name])
+            fn, functions or cs.KERNEL_FUNCTIONS[name])
         print(json.dumps({
             "tag": tag, "kernel": name, "use": use, "shape": shape,
             "ms": cs.cuda_ms(fn), "device_us": dev_us,
             "device_method": method, "cuda_launches_per_call": per_call,
             "host_us": cs.host_us(fn)}), flush=True)
 
+    def image_levels(x, L):
+        if hasattr(pk, "pyramid"):
+            return pk.pyramid(x, L)
+        bufs = [torch.empty((3,) + tuple(x.shape), device=dev)]
+        bufs[0][0].copy_(x)
+        for _ in range(L - 1):
+            h, w = bufs[-1].shape[1:]
+            bufs.append(torch.empty((3, h // 2, w // 2), device=dev))
+            pk.halfsample(bufs[-2][0], out=bufs[-1][0])
+        return bufs
+
+    for x, L, what in ((img, 4, "752x480"), (kitti, 4, "1241x376"),
+                       (img, 5, "752x480 5-level")):
+        row("halfsample", f"pyramid, {L} levels, {what}", list(x.shape),
+            lambda x=x, L=L: image_levels(x, L), ("",))
+        row("build_with_gradients", f"{L} levels, {what}", list(x.shape),
+            lambda x=x, L=L: pyramid.build_with_gradients(x, L), ("",))
     for x, what in ((img, "752x480"), (kitti, "1241x376")):
-        row("halfsample", what, list(x.shape), lambda x=x: pk.halfsample(x))
+        row("halfsample", f"one level, {what}", list(x.shape),
+            lambda x=x: pk.halfsample(x))
         row("gradients", what, list(x.shape), lambda x=x: pk.gradients(x))
 
     uv192 = centres(192, 480, 752)

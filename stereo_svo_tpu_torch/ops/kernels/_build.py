@@ -35,6 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 _SIGNATURES = {
+    "svo_pyramid": [_P, _P, _I, _I, _I, _P],
     "svo_halfsample": [_P, _P, _I, _I, _P],
     "svo_gradients": [_P, _P, _P, _I, _I, _P],
     "svo_sample_patch": [_P, _I, _I, _I, _P, _L, _I, _P, _P],

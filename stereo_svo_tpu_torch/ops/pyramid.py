@@ -1,7 +1,8 @@
 """Image pyramid + gradient maps — port of ``stereo_svo_tpu/ops/pyramid.py``.
 
-A pyramid is a tuple of (H/2^l, W/2^l) float32 tensors. On CUDA every
-level runs kernel B1 (half-sample) and every gradient map kernel B2
+A pyramid is a tuple of (H/2^l, W/2^l) float32 tensors. On CUDA,
+:func:`build_with_gradients` builds every level with one launch of kernel
+B1 and each level's gradient maps with kernel B2
 (``kernels/pyramid_kernel``).
 """
 
@@ -33,19 +34,12 @@ def gradients(img: torch.Tensor):
 def build_with_gradients(img: torch.Tensor, num_levels: int):
     """Pyramid plus per-level gradient maps: (levels, grads_x, grads_y).
 
-    Each level lives in one (3,h,w) buffer [image, gx, gy] (B1 and B2 write
-    into its planes), so a template builder samples all three with one B3
-    launch through :func:`level_planes`."""
-    buf = torch.empty((3,) + tuple(img.shape), dtype=img.dtype,
-                      device=img.device)
-    buf[0].copy_(img)
-    bufs = [buf]
-    for _ in range(num_levels - 1):
-        h, w = bufs[-1].shape[1:]
-        nxt = torch.empty((3, h // 2, w // 2), dtype=img.dtype,
-                          device=img.device)
-        pyramid_kernel.halfsample(bufs[-1][0], out=nxt[0])
-        bufs.append(nxt)
+    Each level lives in one (3,h,w) buffer [image, gx, gy], all of them
+    views of one tensor: one B1 launch writes every image plane (level 0 a
+    copy of ``img``), one B2 launch a level writes gx and gy, and a
+    template builder samples all three with one B3 launch through
+    :func:`level_planes`."""
+    bufs = pyramid_kernel.pyramid(img, num_levels)
     for b in bufs:
         pyramid_kernel.gradients(b[0], out=b[1:])
     return (tuple(b[0] for b in bufs), tuple(b[1] for b in bufs),

@@ -143,24 +143,45 @@ def test_sample_patches_plain_stacked_planes(K, P):
     assert torch.equal(align_kernel.sample_patches(_t(imgs), _t(uv), P), out)
 
 
-def test_pyramid_levels_share_one_buffer_per_level():
-    """build_with_gradients keeps each level's image, gx and gy in one
-    (3,h,w) buffer, which level_planes hands to B3 as a view; the maps
-    match the JAX pyramid."""
-    img = _img(40, 61, 93)
-    levels, gxs, gys = pyramid.build_with_gradients(_t(img), 3)
-    jl, jgx, jgy = jpyramid.build_with_gradients(jnp.asarray(img), 3)
-    for lv in range(3):
-        np.testing.assert_allclose(levels[lv].numpy(), np.asarray(jl[lv]),
+@pytest.mark.parametrize("shape,L", [
+    ((61, 93), 3), ((61, 93), 4), ((61, 93), 5),
+    ((13, 40), 5),       # 13 → 6 → 3 → 1 → 0 rows: the deepest level empty
+    ((61, 93), 1)])      # level 0 only
+def test_pyramid_levels_share_one_buffer_per_level(shape, L):
+    """pyramid_plain and build_with_gradients match the JAX pyramid; every
+    level's image, gx and gy lie in one (3,h,w) buffer, the buffers one
+    after another in one allocation, and level_planes hands B3 a view."""
+    img = _img(40, *shape)
+    jl, jgx, jgy = jpyramid.build_with_gradients(jnp.asarray(img), L)
+    plain = pyramid_kernel.pyramid_plain(_t(img), L)
+    levels, gxs, gys = pyramid.build_with_gradients(_t(img), L)
+    assert len(plain) == len(levels) == L
+    assert torch.equal(levels[0], _t(img))
+    storage = levels[0].untyped_storage().data_ptr()
+    for lv in range(L):
+        assert levels[lv].shape == jl[lv].shape
+        # JAX's mean sums the 2x2 block in its own order
+        np.testing.assert_allclose(plain[lv].numpy(), np.asarray(jl[lv]),
                                    atol=3e-5)
+        assert torch.equal(levels[lv], plain[lv])
         np.testing.assert_allclose(gxs[lv].numpy(), np.asarray(jgx[lv]),
                                    atol=3e-5)
         np.testing.assert_allclose(gys[lv].numpy(), np.asarray(jgy[lv]),
                                    atol=3e-5)
+        for t in (levels[lv], gxs[lv], gys[lv]):
+            assert t.untyped_storage().data_ptr() == storage
+        if levels[lv].numel() == 0:
+            continue
         planes = pyramid.level_planes(levels[lv], gxs[lv], gys[lv])
         assert planes.data_ptr() == levels[lv].data_ptr()   # a view
         assert torch.equal(planes, torch.stack([levels[lv], gxs[lv],
                                                 gys[lv]]))
+        if lv + 1 < L and levels[lv + 1].numel():
+            # the next level's buffer starts where this one's gy ends
+            assert levels[lv + 1].data_ptr() == (
+                gys[lv].data_ptr() + gys[lv].numel() * 4)
+    if L < 2:
+        return
     # maps built apart are stacked (a copy)
     apart = pyramid.level_planes(levels[1].clone(), gxs[1], gys[1])
     assert torch.equal(apart, pyramid.level_planes(levels[1], gxs[1],
@@ -250,6 +271,10 @@ def test_kernel_wrappers_raise_off_cpu_and_cuda():
     with pytest.raises(ValueError):
         pyramid_kernel.halfsample(img)
     with pytest.raises(ValueError):
+        pyramid_kernel.pyramid(img, 4)
+    with pytest.raises(ValueError):
+        pyramid_kernel.pyramid(torch.zeros(8, 8), 0)
+    with pytest.raises(ValueError):
         align_kernel.sample_patches(torch.zeros(8, 8), uv, 4)
 
 
@@ -260,13 +285,16 @@ def test_cuda_pyramid_kernels(cuda_device):
     img = _t(_img(10, 480, 752), cuda_device)
     before = dict(pyramid_kernel.LAUNCHES)
     half = pyramid_kernel.halfsample(img)
+    into = torch.full((240, 376), float("nan"), device=cuda_device)
+    pyramid_kernel.halfsample(img, out=into)
     gx, gy = pyramid_kernel.gradients(img)
     torch.cuda.synchronize()
-    assert pyramid_kernel.LAUNCHES["halfsample"] == before["halfsample"] + 1
+    assert pyramid_kernel.LAUNCHES["halfsample"] == before["halfsample"] + 2
     assert pyramid_kernel.LAUNCHES["gradients"] == before["gradients"] + 1
     # same additions in the same order, no fused multiply-add: exact
     torch.testing.assert_close(half, pyramid_kernel.halfsample_plain(img),
                                rtol=0, atol=0)
+    assert torch.equal(into, half)
     pgx, pgy = pyramid_kernel.gradients_plain(img)
     torch.testing.assert_close(gx, pgx, rtol=0, atol=0)
     torch.testing.assert_close(gy, pgy, rtol=0, atol=0)
@@ -322,6 +350,58 @@ def test_cuda_pyramid_kernels_odd_shapes(cuda_device, shape):
     for ours, plain in zip(pyramid_kernel.gradients(img),
                            pyramid_kernel.gradients_plain(img)):
         torch.testing.assert_close(ours, plain, rtol=0, atol=0)
+
+
+# (frame, levels, B1 launches): chip_smoke.py phase 2's three pyramids, a
+# width ≡ 1 (mod 4) with odd sizes, an empty deepest level (20 → 10 → 5 →
+# 2 → 1 → 0 rows), a pyramid deeper than one launch builds, level 0 alone
+CUDA_PYRAMIDS = [((480, 752), 4, 1), ((480, 752), 5, 1), ((376, 1241), 4, 1),
+                 ((61, 93), 5, 1), ((20, 70), 6, 1), ((200, 300), 8, 2),
+                 ((70, 130), 1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,L,launches", CUDA_PYRAMIDS)
+def test_cuda_pyramid_exact(cuda_device, shape, L, launches):
+    """B1 writes every level's image plane bit for bit as the chain of
+    halfsample_plain calls, level 0 equal to the frame."""
+    img = _t(_img(16, *shape), cuda_device)
+    before = pyramid_kernel.LAUNCHES["halfsample"]
+    bufs = pyramid_kernel.pyramid(img, L)
+    torch.cuda.synchronize()
+    assert pyramid_kernel.LAUNCHES["halfsample"] == before + launches
+    assert torch.equal(bufs[0][0], img)
+    plain = pyramid_kernel.pyramid_plain(img, L)
+    assert len(bufs) == len(plain) == L
+    for b, ref in zip(bufs, plain):
+        assert torch.equal(b[0], ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [4, 5])
+def test_cuda_build_with_gradients_one_b1_launch(cuda_device, L):
+    """One B1 launch per pyramid, one B2 launch per level, nothing else (no
+    copy of level 0) in a profiler trace; every map exact."""
+    from torch.profiler import ProfilerActivity, profile
+    img = _t(_img(17, 480, 752), cuda_device)
+    pyramid.build_with_gradients(img, L)            # build, warm up
+    torch.cuda.synchronize()
+    before = dict(pyramid_kernel.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        levels, gxs, gys = pyramid.build_with_gradients(img, L)
+        torch.cuda.synchronize()
+    assert pyramid_kernel.LAUNCHES["halfsample"] == before["halfsample"] + 1
+    assert pyramid_kernel.LAUNCHES["gradients"] == before["gradients"] + L
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == L + 1, names
+    assert sum("pyramid_levels_kernel" in n for n in names) == 1, names
+    assert sum("gradients_kernel" in n for n in names) == L, names
+    for lv, ref in enumerate(pyramid_kernel.pyramid_plain(img, L)):
+        assert torch.equal(levels[lv], ref)
+        pgx, pgy = pyramid_kernel.gradients_plain(ref)
+        assert torch.equal(gxs[lv], pgx) and torch.equal(gys[lv], pgy)
 
 
 @pytest.mark.cuda
