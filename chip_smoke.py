@@ -44,12 +44,38 @@ Phases, one result line each, in order:
      sequence; gates ATE ≤ 0.02 m and tracking;
   6. SvoConfig(klt_affine_warp=True) over the first 50 frames of that
      sequence; gates ATE, tracking, and (feature, level) pairs tracked on
-     warped templates > 0 (the step's n_warped metric).
-Each of phases 3-6 zeroes the launch counters just before its run, reads
+     warped templates > 0 (the step's n_warped metric);
+  7. online loop closure at 752×480 on the EuRoC rig:
+     SvoConfig(online_loop_every=1, kf_dist_ratio=0.05, loop_min_gap=15,
+     loop_min_score=0.75) over the 60-frame out-and-back "loop" sequence
+     (dt 0.25, seed 0) with tests/test_online_loop.py's drift injected
+     before frame 30, then refine_trajectory on the final state; gates the
+     keyframe frames, loop closures and offline edges equal to the JAX CPU
+     reference, tail error and ATE within LOOP_TOL_M of it, tracking 1.0,
+     and B2, B3 and B4 launched inside every online-loop call; reports per
+     online-loop call its kernel launches, host ms and event ms, and for
+     one call under torch.profiler its CUDA launches and device ms; per
+     refine_trajectory call its kernel launches and host ms (its device ms
+     are profile_step.py's "loop" line);
+  7b. the same at 752×480 on tests/test_online_loop.py's rig (fx 760,
+     baseline 0.25, a 3-keyframe window, a 12-slot bank), with
+     online_loop_every=1 and the control at 0; gates loop closures and
+     offline edges equal to the reference, none in the control, and the
+     tail error below 0.75× the control's;
+  8. batched-8 (bench.py's setup): SvoConfig(), 8 "planes" sequences of
+     seeds 0-7 on the arc, 25 frames at dt 0.08, through
+     run_sequence_batched; gates ATE and tracking per sequence, one host
+     sync per batched frame after the first, and sequence 0's poses equal
+     to phase 3's first 25 bit for bit; reports the aggregate frames/s.
+Phase 2 also holds B2, B3 (K=3 and K=1) and B4 at the keyframe thumbnail
+(120x188, N=192, P=4, the centres a keyframe's features give it) that
+phase 7's edge measurements use.
+Each of phases 3-8 zeroes the launch counters just before its run, reads
 them just after, and fails unless every kernel launched; it counts host
 syncs on every frame of the run (CUDA sync debug mode) and fails unless
 the bootstrap frame has none and every other frame, keyframe frames with
-window BA and frames with epipolar recoveries included, has exactly one.
+window BA, online loop closure and epipolar recoveries included, has
+exactly one (phase 8: per batched frame).
 Then phase2_rows (every kernel row with its launches per frame), the
 kernels JSON line (each kernel's main-path row, launches from phase 3),
 the nvidia-smi line, and last
@@ -59,6 +85,7 @@ Extra detail (build log, per-frame times) goes to build/chip_smoke.json.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -72,9 +99,30 @@ N_FRAMES, DT, SEED = 100, 0.08, 0
 N_AFFINE_FRAMES = 50
 ATE_GATE_M, TRACK_GATE = 0.02, 0.99        # bench.py:54-55
 KITTI_ATE_FLOOR_M, KITTI_ATE_FRAC = 0.25, 0.015   # bench.py:529-536
+# phases 7 and 7b: tests/test_online_loop.py's scenario at 752x480
+LOOP_FRAMES, LOOP_DT, LOOP_INJECT_AT = 60, 0.25, 30
+LOOP_DRIFT = [0.05, 0.02, -0.05, 0.004, -0.006, 0.003]
+LOOP_KNOBS = dict(kf_dist_ratio=0.05, loop_min_gap=15, loop_min_score=0.75)
+RIG_7B = dict(fx=760.0, fy=760.0, cx=376.0, cy=240.0, baseline=0.25,
+              width=752, height=480)
+# the JAX package on the CPU over the same frames and drift (recomputed by
+# tests/test_torch_chip_reference.py); tail = mean position error of the
+# last 5 frames
+PHASE7_REF = dict(kf_frames=[0, 3, 6, 10, 16, 24, 28, 31, 34, 37, 41, 45, 51],
+                  n_loop_closures=0, offline_edges=8,
+                  tail_err_m=0.07580976188182831, ate_m=0.02633512466158519)
+PHASE7B_REF = dict(kf_frames=[0, 3, 6, 9, 14, 24, 28, 31, 34, 37, 41, 45, 51],
+                   n_loop_closures=3, offline_edges=8,
+                   tail_err_m=0.02227490395307541,
+                   control_tail_err_m=0.0713019147515297)
+LOOP_TOL_M = 5e-3            # |card − reference| for tail error and ATE
+BATCH, BATCH_FRAMES = 8, 25  # bench.py:376-429
 N_TIMED = 60                               # event-pair timing repetitions
 N_BACK = 200                               # back-to-back calls (device_us,
                                            # host_us)
+# the runtime calls that launch a kernel, as torch.profiler names them
+LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+               "cuLaunchKernelEx")
 MEM_BYTES_PER_S = 3.35e12                  # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12                    # H100 SXM, float32, no tensor
                                            # cores
@@ -113,7 +161,8 @@ NO_LIBRARY_CALL = ("no single PyTorch call computes the sample, the Huber "
 
 
 ROW_SUMMARY = ("name", "shape", "levels", "use", "path",
-               "launches_per_frame", "max_abs_err", "ms", "plain_ms",
+               "launches_per_frame", "launches_per_loop_call",
+               "max_abs_err", "ms", "plain_ms",
                "device_us", "host_us", "bound_us", "bound_by", "library_ms",
                "library_device_us", "library_host_us", "library_max_abs_err")
 
@@ -260,11 +309,13 @@ def _grid(uv, P, h, w, K):
     return (pts * scale - 1.0)[None].expand(K, -1, -1, -1).contiguous()
 
 
-def check_kernels(device, frame, kitti_frame):
+def check_kernels(device, frame, kitti_frame, thumb):
     """Phase 2: each kernel against its plain version on the card at every
     shape a shipped path gives it, with its bound, device, host, event and
-    library-call times. Returns the rows; the first row of each kernel is
-    its main-path row."""
+    library-call times. ``thumb``: (keyframe thumbnail, its feature centres
+    at thumbnail scale, their mask), the inputs of phase 7's edge
+    measurements. Returns the rows; the first row of each kernel is its
+    main-path row."""
     import torch
     import torch.nn.functional as F
     from stereo_svo_tpu_torch.ops import pyramid
@@ -369,6 +420,13 @@ def check_kernels(device, frame, kitti_frame):
                 lambda y: (y, image_planes(pk.pyramid(image, levels)))),
                {"levels": levels, "levels_exact": shapes},
                outputs=image_planes)
+        gradients_case(image, path)
+
+    def gradients_case(image, path, extra=None):
+        """B2 on one level, exact; the library call is a two-channel
+        conv2d, compared on the interior."""
+        h, w = image.shape
+        x = image[None, None]
         stencil = torch.zeros(2, 1, 3, 3, device=image.device)
         stencil[0, 0, 1, 0], stencil[0, 0, 1, 2] = -0.5, 0.5
         stencil[1, 0, 0, 1], stencil[1, 0, 2, 1] = -0.5, 0.5
@@ -377,9 +435,10 @@ def check_kernels(device, frame, kitti_frame):
                4.0 * 3 * h * w, 4.0 * h * w,
                (lambda: F.conv2d(x, stencil, padding=1),
                 lambda y: (y[0, :, 1:-1, 1:-1],
-                           torch.stack(pk.gradients(image))[:, 1:-1, 1:-1])))
+                           torch.stack(pk.gradients(image))[:, 1:-1, 1:-1])),
+               extra)
 
-    def patch_case(image, uv, P, path, use, K=1):
+    def patch_case(image, uv, P, path, use, K=1, extra=None):
         """B3 at centres ``uv`` on ``image`` (K = 3: the level's image, gx
         and gy in one launch): bit for bit the plain version."""
         h, w = image.shape
@@ -407,16 +466,20 @@ def check_kernels(device, frame, kitti_frame):
                                       align_corners=True),
                 lambda y: (y[:, 0][:, inner], ak.sample_patches(
                     src, uv, P).reshape(K, M, P2)[:, inner])),
-               {"use": use, "interior_centres": int(inner.sum())})
+               {"use": use, "interior_centres": int(inner.sum()),
+                **(extra or {})})
 
-    def gn_case(image, N, path, use):
+    def gn_case(image, N, path, use, uv_in=None, feature_mask=None,
+                tol_rel=1e-4, extra=None):
         """B4 at N features, P=4, on ``image`` with (a, b) != (1, 0) and a
-        per-pixel mask; bit-reproducible, also after a call at another
-        width on the same stream."""
+        per-pixel mask (times ``feature_mask`` where given); at ``uv_in``,
+        or N centres drawn inside the image; bit-reproducible, also after a
+        call at another width on the same stream."""
         P = 4
         h, w = image.shape
-        uv_in = (torch.rand(N, 2, generator=gen)
-                 * torch.tensor([w - 8.0, h - 8.0]) + 4.0).to(device)
+        if uv_in is None:
+            uv_in = (torch.rand(N, 2, generator=gen)
+                     * torch.tensor([w - 8.0, h - 8.0]) + 4.0).to(device)
         cur = ak.sample_patches_plain(image, uv_in, P)
         a_il = torch.tensor(1.3, device=device)
         b_il = torch.tensor(-7.0, device=device)
@@ -424,6 +487,8 @@ def check_kernels(device, frame, kitti_frame):
                 + 6.0 * torch.randn(cur.shape, generator=gen).to(device))
         jac = torch.randn(N, P * P, 6, generator=gen).to(device) * 50.0
         mask = (torch.rand(N, P * P, generator=gen) > 0.2).float().to(device)
+        if feature_mask is not None:
+            mask = mask * feature_mask[:, None].float()
         args = (image, uv_in, tmpl.contiguous(), jac, mask, P, 8.0, a_il,
                 b_il)
         kern = ak.gn_accumulate(*args)
@@ -439,7 +504,7 @@ def check_kernels(device, frame, kitti_frame):
         # H, g, cost: float32 sums of N·16 terms in two orders, so the
         # error is judged relative to each output's largest entry
         record("gn_accumulate", lambda: ak.gn_accumulate(*args)[:3],
-               lambda: ak.gn_accumulate_plain(*args)[:3], 0.0, 1e-4,
+               lambda: ak.gn_accumulate_plain(*args)[:3], 0.0, tol_rel,
                [h, w, N, P], path,
                4.0 * (footprint_pixels(h, w, uv_in, P) + 2 * N + terms * 8
                       + 2 + 45),
@@ -448,7 +513,7 @@ def check_kernels(device, frame, kitti_frame):
                84.0 * terms, None,
                {"use": use, "a_b": [1.3, -7.0],
                 "blocks": _build.load_library().svo_gn_blocks(N, P),
-                "bit_reproducible": True})
+                "bit_reproducible": True, **(extra or {})})
 
     def centres(N, h, w, n_border=0):
         """N centres over the image and 2 px beyond it; the first
@@ -494,6 +559,16 @@ def check_kernels(device, frame, kitti_frame):
                 f"gn_accumulate N={N} changed after a call at another width")
     emit("phase2_gn_alternation", {"widths": [192, 2048, 192],
                                    "bit_equal": True})
+    # loop-edge measurement at the keyframe thumbnail: B2 on the thumbnail,
+    # the template (K=3) and inner passes (K=1) of B3 and the refresh
+    # passes of B4 at the features' centres scaled to it, P = loop_patch
+    t_img, t_uv, t_mask = thumb
+    edge = {"thumbnail": True}
+    gradients_case(t_img, "phase7", edge)
+    patch_case(t_img, t_uv, 4, "phase7", "loop template", K=3, extra=edge)
+    patch_case(t_img, t_uv, 4, "phase7", "loop inner passes", extra=edge)
+    gn_case(t_img, t_uv.shape[0], "phase7", "loop refresh pass", uv_in=t_uv,
+            feature_mask=t_mask, tol_rel=4e-7, extra=edge)
     return rows
 
 
@@ -516,11 +591,47 @@ def render_kitti_road(cam, n, device):
     return torch.stack(lefts), torch.stack(rights), torch.stack(poses)
 
 
-def drive(cfg, lefts, rights, gt, counters):
+def count_syncs(fn):
+    """fn() under CUDA sync debug mode ("warn"): (its result, the host
+    syncs it made, {file:line: count} of where). Each synchronising call
+    warns, a few µs of host time each."""
+    import torch
+    sites = {}
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    hits = [w for w in caught if "synchroniz" in str(w.message)]
+    for w in hits:
+        key = f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+        sites[key] = sites.get(key, 0) + 1
+    return out, len(hits), sites
+
+
+def prof_stats(fn):
+    """(CUDA launches, device ms) of ``fn()`` under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        fn()
+        torch.cuda.synchronize()
+    ka = p.key_averages()
+    launches = sum(e.count for e in ka if e.key in LAUNCH_KEYS)
+    dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in ka
+                 if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    return launches, dev_us / 1e3
+
+
+def drive(cfg, lefts, rights, gt, counters, before_frame=None):
     """One run of StereoSvo over the frames with every launch counter set
-    to 0 just before and read just after: gates' inputs and timings. Host
-    syncs are counted on every frame under CUDA sync debug mode, where each
-    synchronising call warns (a few µs of host time per frame)."""
+    to 0 just before and read just after: gates' inputs and timings, and
+    the StereoSvo. ``before_frame(i, svo)`` runs before frame i, outside
+    the frame's timing and sync count. Host syncs are counted on every
+    frame under CUDA sync debug mode."""
     import numpy as np
     import torch
     from stereo_svo_tpu_torch.engine.runner import StereoSvo
@@ -535,24 +646,22 @@ def drive(cfg, lefts, rights, gt, counters):
             counts[k] = 0
     events, syncs, sync_sites = [], [], {}
     t_wall = time.perf_counter()
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        for i in range(n):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                a.record()
-                svo.new_image(lefts[i], rights[i])
-                b.record()
-            events.append((a, b))
-            hits = [w for w in caught if "synchroniz" in str(w.message)]
-            syncs.append(len(hits))
-            for w in hits:
-                key = f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
-                sync_sites[key] = sync_sites.get(key, 0) + 1
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
+    for i in range(n):
+        if before_frame is not None:
+            before_frame(i, svo)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+
+        def frame():
+            a.record()
+            svo.new_image(lefts[i], rights[i])
+            b.record()
+
+        _, count, sites = count_syncs(frame)
+        events.append((a, b))
+        syncs.append(count)
+        for key, c in sites.items():
+            sync_sites[key] = sync_sites.get(key, 0) + c
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t_wall
     launches = {k: v for counts in counters for k, v in counts.items()}
@@ -595,7 +704,214 @@ def drive(cfg, lefts, rights, gt, counters):
     require(syncs[0] == 0 and all(c == 1 for c in syncs[1:]),
             f"host syncs per frame {syncs} (want 0 on the bootstrap, 1 on "
             f"every tracked frame): {sync_sites}")
-    return out, frame_ms, metrics
+    return out, frame_ms, metrics, svo
+
+
+def inject_world_offset(state, D):
+    """tests/test_online_loop.py's drift event: the window (current and
+    template poses, window keyframes and the bank slots they own) moves by
+    D ((3,4), cam→world side), older bank poses stay where they were."""
+    import torch
+    from stereo_svo_tpu_torch.frontend import keyframe
+    from stereo_svo_tpu_torch.geometry import se3
+    M = state.mem_valid.shape[0]
+    owns = state.kf_valid & (state.mem_stamp[state.kf_mem] == state.kf_stamp)
+    owned = (keyframe._one_hot(state.kf_mem, M) & owns[None]).any(1)
+    Dinv = se3.inverse(D)
+    return state._replace(
+        T_cw=se3.compose(state.T_cw, Dinv), T_pw=se3.compose(state.T_pw, Dinv),
+        kf_T_wk=torch.where(state.kf_valid[:, None, None],
+                            se3.compose(D, state.kf_T_wk), state.kf_T_wk),
+        mem_T_wk=torch.where(owned[:, None, None],
+                             se3.compose(D, state.mem_T_wk), state.mem_T_wk))
+
+
+@contextlib.contextmanager
+def watch_calls(module, name, counters):
+    """While the block runs, ``module.<name>`` (looked up at each call by
+    its callers) is wrapped: per call, the launches each kernel counter
+    gained, the host ms to issue it (no sync: the call makes none) and a
+    CUDA-event pair around it; the last call's arguments are kept."""
+    import torch
+    orig = getattr(module, name)
+    calls = []
+
+    def wrapped(*args):
+        before = {k: v for c in counters for k, v in c.items()}
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        out = orig(*args)
+        b.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        if calls:
+            del calls[-1]["args"]        # only the last call's are kept
+        calls.append({"launches": {k: v - before[k] for c in counters
+                                   for k, v in c.items()},
+                      "host_ms": host_ms, "events": (a, b), "args": args})
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def tail_err(traj, gt, k: int = 5) -> float:
+    """Mean position error (m) over the last k frames."""
+    import numpy as np
+    return float(np.linalg.norm(traj[-k:, :, 3] - gt[-k:, :, 3],
+                                axis=1).mean())
+
+
+def loop_run(cfg, lefts, rights, gt, counters, device):
+    """A phase-7 run: StereoSvo over the loop sequence with the drift
+    injected before frame LOOP_INJECT_AT and every online-loop call
+    watched (launches of each kernel, host ms to issue, event ms). Returns
+    (result dict, the StereoSvo, the watched calls)."""
+    import numpy as np
+    import torch
+    from stereo_svo_tpu_torch.engine import step as step_mod
+    from stereo_svo_tpu_torch.geometry import se3
+
+    D = se3.exp(torch.tensor(LOOP_DRIFT, dtype=torch.float32, device=device))
+
+    def inject(i, svo):
+        if i == LOOP_INJECT_AT:
+            svo.state = inject_world_offset(svo.state, D)
+
+    with watch_calls(step_mod, "run_online_loop", counters) as calls:
+        out, frame_ms, metrics, svo = drive(cfg, lefts, rights, gt, counters,
+                                            before_frame=inject)
+    traj, gt_np = svo.trajectory(), gt.cpu().numpy()
+    n_frames = lefts.shape[0]
+    out.update(kf_frames=np.nonzero(metrics["kf_inserted"])[0].tolist(),
+               n_loop_closures=int(svo.state.n_loop_closures),
+               tail_err_m=tail_err(traj, gt_np), loop_calls=len(calls),
+               frame_ms_all=frame_ms)
+    if calls:
+        call_frames = [i for i in range(n_frames)
+                       if metrics["kf_inserted"][i] and i > 0]
+        out["loop_call"] = {
+            "launches_per_call": {k: statistics.mean(
+                c["launches"][k] for c in calls) for k in calls[0]["launches"]},
+            "host_ms_median": statistics.median(c["host_ms"] for c in calls),
+            "event_ms_median": statistics.median(
+                a.elapsed_time(b) for a, b in (c["events"] for c in calls)),
+            "kf_frame_ms_median": statistics.median(
+                frame_ms[i] for i in call_frames)}
+        missing = [k for k in ("gradients", "sample_patches",
+                               "gn_accumulate")
+                   if any(c["launches"][k] <= 0 for c in calls)]
+        require(not missing, f"an online-loop call launched no {missing}")
+    return out, svo, calls
+
+
+def refine_run(cfg, svo, gt, counters):
+    """refine_trajectory on a run's final state (host numpy at its end, so
+    the host ms are its wall time): offline edges, launches of each
+    kernel, host ms, and the refined trajectory's errors."""
+    import numpy as np
+    import torch
+    from stereo_svo_tpu_torch.backend import loop_closure
+    from stereo_svo_tpu_torch.eval import ate
+
+    traj, gt_np = svo.trajectory(), gt.cpu().numpy()
+    before = {k: v for c in counters for k, v in c.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    refined, _, n_edges = loop_closure.refine_trajectory(cfg, svo.state, traj)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    require(np.isfinite(refined).all(), "refine_trajectory: not finite")
+    return {"offline_edges": n_edges, "host_ms": host_ms,
+            "kernel_launches": {k: v - before[k] for c in counters
+                                for k, v in c.items()},
+            "tail_err_m": tail_err(refined, gt_np),
+            "ate_m": ate.ate_rmse(ate.positions(refined),
+                                  ate.positions(gt_np))}
+
+
+def batched_run(cfg, counters, device, traj3):
+    """Phase 8: BATCH sequences of the planes scene (seeds 0 to BATCH-1) on
+    the arc trajectory, BATCH_FRAMES frames at DT, through
+    run_sequence_batched, with the launch counters zeroed just before and
+    the host syncs of every batched frame counted. ``traj3``: phase 3's
+    trajectory, whose first frames sequence 0 repeats."""
+    import numpy as np
+    import torch
+    from stereo_svo_tpu_torch.engine import runner
+    from stereo_svo_tpu_torch.eval import ate
+    from stereo_svo_tpu_torch.io import synthetic
+
+    t0 = time.perf_counter()
+    seqs = [synthetic.make_sequence(cfg.camera, BATCH_FRAMES, DT, kind="arc",
+                                    seed=b, device=device)
+            for b in range(BATCH)]
+    lefts = torch.stack([q[0] for q in seqs])
+    rights = torch.stack([q[1] for q in seqs])
+    gt = seqs[0][2].cpu().numpy()      # one trajectory for every scene
+    del seqs
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+
+    make = runner.make_batched_step     # run_sequence_batched looks it up
+    syncs, sites = [], {}
+
+    def counted(c):
+        bstep = make(c)
+
+        def step(*args):
+            out, n, where = count_syncs(lambda: bstep(*args))
+            syncs.append(n)
+            for key, v in where.items():
+                sites[key] = sites.get(key, 0) + v
+            return out
+        return step
+
+    for counts in counters:
+        for k in counts:
+            counts[k] = 0
+    runner.make_batched_step = counted
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states, outs = runner.run_sequence_batched(cfg, lefts, rights,
+                                                   device=device)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        runner.make_batched_step = make
+    launches = {k: v for counts in counters for k, v in counts.items()}
+    traj = outs.T_wc.cpu().numpy()
+    ok = outs.tracking_ok.cpu().numpy()
+    ates = [ate.ate_rmse(ate.positions(traj[b]), ate.positions(gt))
+            for b in range(BATCH)]
+    out = {"config": "SvoConfig()", "batch": BATCH, "frames": BATCH_FRAMES,
+           "scene": "planes", "traj": "arc", "seeds": list(range(BATCH)),
+           "render_seconds": render_s, "wall_seconds": wall_s,
+           "fps_aggregate": BATCH * BATCH_FRAMES / wall_s,
+           "ate_m": ates, "ate_max_m": max(ates),
+           "tracking_ok": ok.mean(1).tolist(),
+           "keyframes": outs.kf_inserted.sum(1).tolist(),
+           "host_syncs_per_batched_frame": {
+               str(c): syncs.count(c) for c in sorted(set(syncs))},
+           "sync_sites": sites, "launches": launches,
+           "launches_per_batched_frame": {k: v / BATCH_FRAMES
+                                          for k, v in launches.items()},
+           "seq0_equals_phase3": bool(np.array_equal(
+               traj[0], traj3[:BATCH_FRAMES]))}
+    missing = [k for k, v in launches.items() if v <= 0]
+    require(not missing, f"kernels never launched in the batch: {missing}")
+    require(syncs[0] == 0 and all(c == 1 for c in syncs[1:]),
+            f"host syncs per batched frame {syncs} (want 0 on the "
+            f"bootstrap, 1 after): {sites}")
+    require(max(ates) <= ATE_GATE_M, f"batched ATE {ates}")
+    require(ok.mean(1).min() >= TRACK_GATE, f"batched tracking {ok.mean(1)}")
+    require(out["seq0_equals_phase3"],
+            "sequence 0 of the batch differs from phase 3's first frames")
+    return out
 
 
 def main() -> int:
@@ -613,6 +929,8 @@ def main() -> int:
         import stereo_svo_tpu_torch  # noqa: F401  (sets the TF32 flags)
         from stereo_svo_tpu_torch.config import (SvoConfig, kitti_config,
                                                  stress_config)
+        from stereo_svo_tpu_torch.engine import step as step_mod
+        from stereo_svo_tpu_torch.engine.runner import StereoSvo
         from stereo_svo_tpu_torch.io import synthetic
         from stereo_svo_tpu_torch.ops.kernels import _build
         from stereo_svo_tpu_torch.ops.kernels import align_kernel as ak
@@ -625,6 +943,13 @@ def main() -> int:
     torch.cuda.set_device(device)
     counters = (pk.LAUNCHES, ak.LAUNCHES)
     detail = {}
+    seconds, clock = {}, [time.perf_counter(), "setup"]
+
+    def mark(name):
+        """Seconds since the previous mark go to the phase named then."""
+        now = time.perf_counter()
+        seconds[clock[1]] = now - clock[0]
+        clock[:] = [now, name]
 
     # ---- phase 0: device ----
     smi = nvidia_smi_line()
@@ -664,11 +989,31 @@ def main() -> int:
     require(tuple(k_lefts.shape) == (N_FRAMES, 376, 1241),
             f"{k_lefts.shape}")
 
+    # phase 7's sequence, and the keyframe thumbnail its edge measurements
+    # align: the bootstrap keyframe's (level 2 of frame 0) with its
+    # features' centres at thumbnail scale
+    lcfg = SvoConfig(online_loop_every=1, **LOOP_KNOBS)
+    t0 = time.perf_counter()
+    l_lefts, l_rights, l_gt = synthetic.make_sequence(
+        lcfg.camera, LOOP_FRAMES, LOOP_DT, kind="loop", seed=SEED,
+        device=device)
+    torch.cuda.synchronize()
+    l_render_s = time.perf_counter() - t0
+    boot = StereoSvo(lcfg, device="cuda")
+    boot.new_image(l_lefts[0], l_rights[0])
+    scale = 1.0 / 2 ** lcfg.thumb_level
+    thumb = (boot.state.mem_thumb[0], boot.state.mem_uv[0] * scale,
+             boot.state.mem_mask[0])
+    require(tuple(thumb[0].shape) == (120, 188), f"{thumb[0].shape}")
+
     # ---- phase 2: kernels against plain versions ----
-    rows = check_kernels(device, lefts[0], k_lefts[0])
+    mark("phase2")
+    rows = check_kernels(device, lefts[0], k_lefts[0], thumb)
 
     # ---- phase 3: the main path, SvoConfig() as shipped ----
-    phase3, frame_ms, metrics = drive(cfg, lefts, rights, gt, counters)
+    mark("phase3")
+    phase3, frame_ms, metrics, svo3 = drive(cfg, lefts, rights, gt,
+                                            counters)
     phase3.update(config="SvoConfig()", render_seconds=render_s)
     emit("phase3", phase3)
     detail.update(phase0=phase0, phase3=phase3, frame_ms=frame_ms,
@@ -681,8 +1026,9 @@ def main() -> int:
     require(phase3["ba_accepted"] >= 1, "no window BA call was accepted")
 
     # ---- phase 4: KITTI geometry ----
-    phase4, frame_ms, metrics = drive(kcfg, k_lefts, k_rights, k_gt,
-                                      counters)
+    mark("phase4")
+    phase4, frame_ms, metrics, _ = drive(kcfg, k_lefts, k_rights, k_gt,
+                                         counters)
     gate = max(KITTI_ATE_FLOOR_M, KITTI_ATE_FRAC * phase4["gt_travel_m"])
     phase4.update(config="kitti_config()", scene="road", traj="kitti",
                   aa=2, ate_gate_m=gate, render_seconds=k_render_s)
@@ -697,8 +1043,9 @@ def main() -> int:
     del k_lefts, k_rights
 
     # ---- phase 5: stress ----
-    phase5, frame_ms, _ = drive(stress_config(), lefts, rights, gt,
-                                counters)
+    mark("phase5")
+    phase5, frame_ms, _, _ = drive(stress_config(), lefts, rights, gt,
+                                   counters)
     phase5.update(config="stress_config()")
     emit("phase5", phase5)
     detail.update(phase5=phase5, phase5_frame_ms=frame_ms)
@@ -708,10 +1055,11 @@ def main() -> int:
             f"stress tracking_ok {phase5['tracking_ok']}")
 
     # ---- phase 6: affine-warped KLT templates ----
+    mark("phase6")
     acfg = SvoConfig(klt_affine_warp=True)
     n6 = N_AFFINE_FRAMES
-    phase6, frame_ms, _ = drive(acfg, lefts[:n6], rights[:n6], gt[:n6],
-                                counters)
+    phase6, frame_ms, _, _ = drive(acfg, lefts[:n6], rights[:n6], gt[:n6],
+                                   counters)
     phase6.update(config="SvoConfig(klt_affine_warp=True)")
     emit("phase6", phase6)
     detail.update(phase6=phase6, phase6_frame_ms=frame_ms)
@@ -722,9 +1070,101 @@ def main() -> int:
     require(phase6["warped_templates"] > 0,
             "no feature was tracked on a warped template")
 
+    # ---- phase 7: online and offline loop closure, EuRoC rig ----
+    mark("phase7")
+    phase7, svo7, calls = loop_run(lcfg, l_lefts, l_rights, l_gt, counters,
+                                   device)
+    phase7["refine"] = refine_run(lcfg, svo7, l_gt, counters)
+    # one online-loop call (the last one's input) under torch.profiler:
+    # CUDA launches and device ms; refine_trajectory's are profile_step.py's
+    # "loop" line (a profile of its ~63,000 launches takes ~30 s)
+    launches, dev_ms = prof_stats(
+        lambda: step_mod.run_online_loop(lcfg, calls[-1]["args"][1]))
+    phase7["loop_call"].update(profiled_launches=launches,
+                               profiled_device_ms=dev_ms)
+    phase7.update(config="SvoConfig(online_loop_every=1, kf_dist_ratio=0.05"
+                         ", loop_min_gap=15, loop_min_score=0.75)",
+                  scene="planes", traj="loop", dt=LOOP_DT,
+                  inject_at=LOOP_INJECT_AT, drift=LOOP_DRIFT,
+                  render_seconds=l_render_s, reference=PHASE7_REF,
+                  tol_m=LOOP_TOL_M)
+    detail["phase7_frame_ms"] = phase7.pop("frame_ms_all")
+    emit("phase7", phase7)
+    detail["phase7"] = phase7
+    ref = PHASE7_REF
+    require(phase7["kf_frames"] == ref["kf_frames"],
+            f"keyframes {phase7['kf_frames']}, reference {ref['kf_frames']}")
+    require(phase7["n_loop_closures"] == ref["n_loop_closures"],
+            f"loop closures {phase7['n_loop_closures']}, reference "
+            f"{ref['n_loop_closures']}")
+    require(phase7["refine"]["offline_edges"] == ref["offline_edges"],
+            f"offline edges {phase7['refine']['offline_edges']}, reference "
+            f"{ref['offline_edges']}")
+    for key in ("tail_err_m", "ate_m"):
+        require(abs(phase7[key] - ref[key]) <= LOOP_TOL_M,
+                f"{key} {phase7[key]}, reference {ref[key]}")
+    require(phase7["tracking_ok"] == 1.0,
+            f"tracking_ok {phase7['tracking_ok']}")
+    require(phase7["loop_calls"] == len(ref["kf_frames"]) - 1,
+            f"{phase7['loop_calls']} online-loop calls, want one per "
+            f"keyframe after the bootstrap")
+    del l_lefts, l_rights
+
+    # ---- phase 7b: a correction folded in, the test rig at 752x480 ----
+    mark("phase7b")
+    from stereo_svo_tpu_torch.config import CameraConfig
+    rig = dict(camera=CameraConfig(**RIG_7B), max_keyframes=3,
+               mem_keyframes=12, **LOOP_KNOBS)
+    t0 = time.perf_counter()
+    b_lefts, b_rights, b_gt = synthetic.make_sequence(
+        rig["camera"], LOOP_FRAMES, LOOP_DT, kind="loop", seed=SEED,
+        device=device)
+    torch.cuda.synchronize()
+    phase7b = {"render_seconds": time.perf_counter() - t0,
+               "config": "SvoConfig(camera=CameraConfig(fx=760, fy=760, "
+                         "cx=376, cy=240, baseline=0.25, width=752, "
+                         "height=480), max_keyframes=3, mem_keyframes=12, "
+                         "kf_dist_ratio=0.05, loop_min_gap=15, "
+                         "loop_min_score=0.75)",
+               "reference": PHASE7B_REF}
+    for every, key in ((1, "online"), (0, "control")):
+        bcfg = SvoConfig(online_loop_every=every, **rig)
+        run, svo, _ = loop_run(bcfg, b_lefts, b_rights, b_gt, counters,
+                               device)
+        if every:
+            run["refine"] = refine_run(bcfg, svo, b_gt, counters)
+        detail[f"phase7b_{key}_frame_ms"] = run.pop("frame_ms_all")
+        phase7b[key] = run
+    emit("phase7b", phase7b)
+    detail["phase7b"] = phase7b
+    on, off = phase7b["online"], phase7b["control"]
+    require(on["n_loop_closures"] == PHASE7B_REF["n_loop_closures"],
+            f"loop closures {on['n_loop_closures']}, reference "
+            f"{PHASE7B_REF['n_loop_closures']}")
+    require(off["n_loop_closures"] == 0,
+            f"{off['n_loop_closures']} loop closures in the control")
+    require(on["tail_err_m"] < 0.75 * off["tail_err_m"],
+            f"tail error {on['tail_err_m']} not below 0.75x the control's "
+            f"{off['tail_err_m']}")
+    require(on["refine"]["offline_edges"] == PHASE7B_REF["offline_edges"],
+            f"offline edges {on['refine']['offline_edges']}, reference "
+            f"{PHASE7B_REF['offline_edges']}")
+    require(min(on["tracking_ok"], off["tracking_ok"]) >= TRACK_GATE,
+            "phase 7b tracking_ok")
+    del b_lefts, b_rights
+
+    # ---- phase 8: batched-8 ----
+    mark("phase8")
+    phase8 = batched_run(cfg, counters, device, svo3.trajectory())
+    emit("phase8", phase8)
+    detail["phase8"] = phase8
+    mark("end")
+    emit("seconds", seconds)
+    detail["seconds"] = seconds
+
     # launches of each row's kernel on the path that gives it its shape
     paths = {"phase3": phase3, "phase4": phase4, "phase5": phase5,
-             "phase6": phase6}
+             "phase6": phase6, "phase7": phase7}
     b1 = {k: p["launches_per_frame"]["halfsample"] for k, p in paths.items()}
     require(all(v == 1.0 for v in b1.values()),
             f"B1 launches per frame {b1}, not 1.0 (one per pyramid)")
@@ -732,6 +1172,9 @@ def main() -> int:
         path = paths[row["path"]]
         row["launches"] = path["launches"][row["name"]]
         row["launches_per_frame"] = path["launches_per_frame"][row["name"]]
+        if row.get("thumbnail"):
+            row["launches_per_loop_call"] = \
+                phase7["loop_call"]["launches_per_call"][row["name"]]
     emit("phase2_rows", {"rows": [
         {k: r.get(k) for k in ROW_SUMMARY} for r in rows]})
     detail["kernels"] = rows

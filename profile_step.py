@@ -17,6 +17,13 @@ over the first 40 frames of chip_smoke.py's sequences (arc/planes at
           one keyframe frame (the second keyframe after the bootstrap) and
           one window-BA call (the first keyframe after the bootstrap).
 
+Then "loop": chip_smoke.py phase 7's run (online loop closure on the EuRoC
+rig, the loop sequence, drift injected at frame 30) and, on the input of
+its last online-loop call and on its final state, the CUDA launches,
+device ms and synchronised wall ms of one online-loop call and one
+refine_trajectory call, and of their parts: the edge measurement
+(loop_closure.measure_edges) and the pose graph (pose_graph.optimize).
+
 Prints one line per configuration, "<name> {json}", then writes all of
 them to --out.
 """
@@ -32,23 +39,81 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_FRAMES = 40          # two keyframes after the bootstrap on KITTI/stress
-LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
-               "cuLaunchKernelEx")
 
 
-def prof_stats(fn):
-    """(CUDA launches, device ms) of ``fn()`` under torch.profiler."""
+def loop_profile(dev):
+    """The "loop" line: an online-loop call and a refine_trajectory call,
+    whole and in parts (see the module docstring)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as p:
+    import chip_smoke
+    from chip_smoke import prof_stats
+    from stereo_svo_tpu_torch.backend import loop_closure, pose_graph
+    from stereo_svo_tpu_torch.config import SvoConfig
+    from stereo_svo_tpu_torch.engine import step as step_mod
+    from stereo_svo_tpu_torch.geometry import se3
+    from stereo_svo_tpu_torch.io import synthetic
+    from stereo_svo_tpu_torch.ops.kernels import align_kernel, pyramid_kernel
+
+    cfg = SvoConfig(online_loop_every=1, **chip_smoke.LOOP_KNOBS)
+    lefts, rights, gt = synthetic.make_sequence(
+        cfg.camera, chip_smoke.LOOP_FRAMES, chip_smoke.LOOP_DT, kind="loop",
+        seed=chip_smoke.SEED, device=dev)
+    D = se3.exp(torch.tensor(chip_smoke.LOOP_DRIFT, device=dev))
+
+    def inject(i, svo):
+        if i == chip_smoke.LOOP_INJECT_AT:
+            svo.state = chip_smoke.inject_world_offset(svo.state, D)
+
+    counters = (pyramid_kernel.LAUNCHES, align_kernel.LAUNCHES)
+    with chip_smoke.watch_calls(step_mod, "run_online_loop",
+                                counters) as calls:
+        _, _, _, svo = chip_smoke.drive(cfg, lefts, rights, gt, counters,
+                                        before_frame=inject)
+    st = calls[-1]["args"][1]
+    traj = svo.trajectory()
+
+    def parts(fn):
+        """(fn's stats, {part: stats}) — each part's arguments captured
+        from one call of fn, then the part profiled alone."""
+        seen = {}
+        originals = {"measure_edges": (loop_closure, loop_closure.measure_edges),
+                     "optimize": (pose_graph, pose_graph.optimize)}
+
+        def capture(name, f):
+            def wrapped(*a, **k):
+                seen[name] = (a, k)
+                return f(*a, **k)
+            return wrapped
+
+        for name, (mod, f) in originals.items():
+            setattr(mod, name, capture(name, f))
+        try:
+            fn()
+        finally:
+            for name, (mod, f) in originals.items():
+                setattr(mod, name, f)
+        out = {"whole": stats(fn)}
+        for name, (mod, f) in originals.items():
+            a, k = seen[name]
+            out[name] = stats(lambda: f(*a, **k))
+        return out
+
+    def stats(fn):
+        fn()                              # warm
+        torch.cuda.synchronize()
+        t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-    ka = p.key_averages()
-    launches = sum(e.count for e in ka if e.key in LAUNCH_KEYS)
-    dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in ka
-                 if str(getattr(e, "device_type", "")).endswith("CUDA"))
-    return launches, dev_us / 1e3
+        wall = (time.perf_counter() - t) * 1e3
+        launches, dev_ms = prof_stats(fn)
+        return {"launches": launches, "device_ms": dev_ms, "wall_ms": wall}
+
+    return {"online_loop_call": parts(
+                lambda: step_mod.run_online_loop(cfg, st)),
+            "refine_trajectory": parts(
+                lambda: loop_closure.refine_trajectory(cfg, svo.state,
+                                                       traj)),
+            "loop_calls": len(calls)}
 
 
 def main() -> int:
@@ -62,6 +127,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     import chip_smoke
+    from chip_smoke import prof_stats
     import stereo_svo_tpu_torch  # noqa: F401  (sets the TF32 flags)
     from stereo_svo_tpu_torch.config import (SvoConfig, kitti_config,
                                              stress_config)
@@ -141,6 +207,8 @@ def main() -> int:
             print(name, json.dumps(r), flush=True)
     finally:
         step_mod.run_window_ba = run_window_ba
+    results["loop"] = loop_profile(dev)
+    print("loop", json.dumps(results["loop"]), flush=True)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(results, f, indent=1)

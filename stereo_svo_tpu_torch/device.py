@@ -1,4 +1,5 @@
-"""Device selection for the port's entry points.
+"""Device selection for the port's entry points, and indexing that keeps
+the host off the device's queue.
 
 Every entry point takes ``device="cuda"`` by default and runs on the CPU
 only when the caller asks for it: a missing card raises, it never falls
@@ -18,3 +19,9 @@ def resolve(device) -> torch.device:
         raise RuntimeError(f"device {str(device)!r}: CUDA is not available "
                            f"(pass device='cpu' to run on the CPU)")
     return device
+
+
+def index0(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """x[i] along dim 0 for a 0-dim index tensor, without a host sync
+    (``x[i]`` reads a 0-dim index to the host)."""
+    return x.index_select(0, i.reshape(1).long())[0]

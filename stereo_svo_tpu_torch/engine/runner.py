@@ -1,8 +1,11 @@
-"""Host-side sequence runner around the per-frame step — port of
-``StereoSvo`` and ``run_sequence`` of ``stereo_svo_tpu/engine/runner.py``.
+"""Host-side sequence runners around the per-frame step — port of
+``stereo_svo_tpu/engine/runner.py``: ``StereoSvo``, ``run_sequence``,
+``run_sequence_scan`` (the reference's ``lax.scan`` runner, the one
+``bench.py`` drives) and ``run_sequence_batched`` (B sequences per step).
 
 Poses and metrics stay on the device until read, so a frame costs the
-step's single host sync and nothing more.
+step's single host sync and nothing more (one per batched frame for the
+batched runner).
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import torch
 from ..config import SvoConfig
 from ..device import resolve
 from .state import FrameOut, SlamState, init_state
-from .step import HostFlags, make_step
+from .step import HostFlags, make_batched_step, make_step
 
 
 class StereoSvo:
@@ -66,3 +69,53 @@ def run_sequence(cfg: SvoConfig, lefts, rights, device="cuda"
     for left, right in zip(lefts, rights):
         svo.new_image(left, right)
     return svo.trajectory(), svo.metrics()
+
+
+def _images(frames, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(frames, dtype=torch.float32,
+                           device=device).contiguous()
+
+
+def _stack(items):
+    """Stack a list of NamedTuples (nested ones too) field by field."""
+    first = items[0]
+    if isinstance(first, tuple):
+        return type(first)(*(_stack(list(f)) for f in zip(*items)))
+    return torch.stack(items)
+
+
+def run_sequence_scan(cfg: SvoConfig, lefts, rights, device="cuda"
+                      ) -> Tuple[SlamState, FrameOut]:
+    """Whole-sequence processing: lefts/rights (T,H,W) in, (final state,
+    FrameOut stacked over T) out, everything on the device."""
+    device = resolve(device)
+    lefts, rights = _images(lefts, device), _images(rights, device)
+    step = make_step(cfg)
+    state = init_state(cfg, device)
+    flags = HostFlags(booted=False, tracking_ok=True)
+    outs = []
+    for t in range(lefts.shape[0]):
+        state, out, flags = step(state, lefts[t], rights[t], flags)
+        outs.append(out)
+    return state, _stack(outs)
+
+
+def run_sequence_batched(cfg: SvoConfig, lefts, rights, device="cuda"
+                         ) -> Tuple[SlamState, FrameOut]:
+    """Multi-sequence batched odometry: lefts/rights (B,T,H,W) in; the
+    final states stacked (every field with a leading B axis) and a
+    FrameOut with leading (B,T) axes out. One host sync per batched frame
+    after the first (:func:`step.make_batched_step`); the states are
+    stacked once, at the end."""
+    device = resolve(device)
+    lefts, rights = _images(lefts, device), _images(rights, device)
+    B, T = lefts.shape[:2]
+    bstep = make_batched_step(cfg)
+    states = [init_state(cfg, device) for _ in range(B)]
+    flags = [HostFlags(booted=False, tracking_ok=True)] * B
+    outs = []
+    for t in range(T):
+        states, out, flags = bstep(states, lefts[:, t], rights[:, t], flags)
+        outs.append(out)
+    per_seq = [_stack([outs[t][b] for t in range(T)]) for b in range(B)]
+    return _stack(states), _stack(per_seq)

@@ -1,11 +1,12 @@
-"""The per-frame SVO state machine — port of ``stereo_svo_tpu/engine/step.py``
-(without online loop closure, which raises in ``make_step``).
+"""The per-frame SVO state machine — port of ``stereo_svo_tpu/engine/step.py``.
 
 One frame: pyramid (kernels B1, B2) → relocalisation scoring → coarse-to-fine
 alignment (B3, B4) → KLT (B3), optionally on affine-warped templates → stereo
 re-measurement (B3) → pose refinement → depth filters, with the epipolar
 search (B3) for lost seeds when ``epi_samples > 0`` → keyframe decision → on
-keyframe frames ``keyframe.insert`` and window BA → template rebuild (B3).
+keyframe frames ``keyframe.insert``, window BA and, every
+``online_loop_every``-th keyframe, the online loop closure (thumbnail
+alignment on B2, B3, B4 and a pose graph) → template rebuild (B3).
 
 Control flow. The reference keeps every branch on the device with
 ``lax.cond``; here they are host ``if``s:
@@ -13,24 +14,29 @@ Control flow. The reference keeps every branch on the device with
 * boot vs track: the host knows whether a keyframe exists (``HostFlags``);
 * the rotated relocalisation variants: gated by the previous frame's
   ``tracking_ok``, which the host already holds;
-* the keyframe branch: one ``.tolist()`` on (need_kf, ok) per tracked
-  frame — the step's only host sync. Window BA's acceptance stays on the
-  device (``torch.where``), so a keyframe frame costs no more syncs.
+* the keyframe branch and the online loop's cadence and cooldown: one
+  ``.tolist()`` per tracked frame reads (need_kf, ok) and, with the online
+  loop on, the bank's insertion count and last correction — the step's
+  only host sync. Window BA's acceptance and the online loop's "any edge
+  accepted" and trust guard stay on the device (``torch.where``), so a
+  keyframe frame costs no more syncs.
 
-``fori_loop``s with static trip counts are Python loops. No tensor of the
-state is updated in place: each phase returns a new ``SlamState``, as in
-the reference.
+``make_batched_step`` runs B sequences per call with one such sync for the
+whole batch. ``fori_loop``s with static trip counts are Python loops. No
+tensor of the state is updated in place: each phase returns a new
+``SlamState``, as in the reference.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..backend import ba as ba_mod
-from ..backend import loop_closure
+from ..backend import loop_closure, pose_graph
 from ..config import SvoConfig
+from ..device import index0
 from ..frontend import keyframe, pose_refine
 from ..geometry import camera as cam_mod
 from ..geometry import se3
@@ -49,18 +55,13 @@ def world_points(cfg: SvoConfig, state: SlamState) -> torch.Tensor:
     return se3.transform(state.kf_T_wk[state.kf_id], p_kf)
 
 
-def _index0(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
-    """x[i] along dim 0 for a 0-dim index tensor, without a host sync."""
-    return x.index_select(0, i.reshape(1).long())[0]
-
-
 def _masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     s = torch.sort(torch.where(mask, x, torch.full_like(x, float("inf")))
                    ).values
     n = mask.sum()
     idx = torch.clamp((n - 1) // 2, 0, x.shape[0] - 1)
     # all-false mask (fully lost frame): a benign positive depth, not inf
-    return torch.where(n > 0, _index0(s, idx), torch.ones_like(s[0]))
+    return torch.where(n > 0, index0(s, idx), torch.ones_like(s[0]))
 
 
 def run_window_ba(cfg: SvoConfig, st: SlamState) -> SlamState:
@@ -77,8 +78,8 @@ def run_window_ba(cfg: SvoConfig, st: SlamState) -> SlamState:
         st.obs_uv, st.obs_mask, st.obs_disp, st.obs_dmask,
         obs_sig=st.obs_sig, kf_stamp=st.kf_stamp)
 
-    T_last = _index0(st.kf_T_wk, st.last_kf)
-    dr, dt = se3.distance(_index0(kf_T_wk, st.last_kf), T_last)
+    T_last = index0(st.kf_T_wk, st.last_kf)
+    dr, dt = se3.distance(index0(kf_T_wk, st.last_kf), T_last)
     if cfg.ba_trust_clamp:
         # a proposal beyond the trust region applies as a geodesic partial
         # step scaled to the trust radius (of the newest keyframe, as the
@@ -96,7 +97,7 @@ def run_window_ba(cfg: SvoConfig, st: SlamState) -> SlamState:
     # signed forward component of the newest keyframe's proposed move, in
     # its own camera frame
     delta_c = se3.transform(se3.inverse(T_last), se3.translation(
-        _index0(kf_T_wk, st.last_kf)))
+        index0(kf_T_wk, st.last_kf)))
     ba_diag = torch.stack([dt, dr, delta_c[2], stats.cost_initial,
                            stats.cost_final, ok.to(torch.float32),
                            stats.n_obs.to(torch.float32)])
@@ -117,6 +118,99 @@ def run_window_ba(cfg: SvoConfig, st: SlamState) -> SlamState:
     mem_T = keyframe._put_drop(st.mem_T_wk, dst.long(), kf_T_wk)
     return st._replace(kf_T_wk=kf_T_wk, mu=mu, mem_T_wk=mem_T,
                        ba_diag=ba_diag)
+
+
+def run_online_loop(cfg: SvoConfig, st: SlamState) -> SlamState:
+    """Online loop closure at keyframe insertion.
+
+    1. the newest keyframe's descriptor variants query the memory bank
+       (``loop_closure.propose_online``);
+    2. the proposals are measured by thumbnail alignment in both
+       directions (``loop_closure.measure_edges``);
+    3. a pose graph over the bank (the stamp-ordered odometry chain plus
+       the measured loop edges) is optimised with the oldest bank slot
+       outside the window as gauge;
+    4. the correction folds into the live state: the window (keyframes,
+       current and template poses) moves rigidly by the newest keyframe's
+       delta, bank slots outside the window take the optimum.
+
+    Applied only if an edge was accepted, the correction of every valid
+    bank slot is within the trust guard (online_loop_max_t/r), the newest
+    keyframe moves more than the significance floor (the larger of the
+    static floor and online_loop_noise_k × the worst accepted edge's
+    round-trip error), a gauge exists outside the window, and the optimum
+    is finite. The reference skips steps 3-4 with ``lax.cond`` when no edge
+    is accepted; here they always run and ``torch.where`` keeps the state,
+    so the call never syncs the host.
+    """
+    M = st.mem_valid.shape[0]
+    m_new = index0(st.kf_mem, st.last_kf)
+    props = loop_closure.propose_online(
+        cfg, st.mem_desc, st.mem_valid, st.mem_stamp, m_new,
+        index0(st.mem_thumb, m_new))
+    meas = loop_closure.measure_edges(
+        cfg, props, st.mem_T_wk, st.mem_thumb,
+        st.mem_uv, st.mem_mask, st.mem_disp, st.mem_dmask)
+    n_edges = meas.accept.sum().to(_I32)
+
+    chain = pose_graph.chain_graph_stamped(st.mem_T_wk, st.mem_valid,
+                                           st.mem_stamp)
+    full = pose_graph.PoseGraph(
+        edges_ij=torch.cat([chain.edges_ij, props.edges_ij]),
+        Z=torch.cat([chain.Z, meas.Z]),
+        weight=torch.cat([chain.weight, meas.accept.to(torch.float32)]))
+    # gauge: the oldest bank slot not owned by the window (the fold below
+    # moves owned slots rigidly with the window)
+    owns = st.kf_valid & (st.mem_stamp[st.kf_mem] == st.kf_stamp)
+    owned_mem = (keyframe._one_hot(st.kf_mem, M) & owns[None]).any(1)
+    elig = st.mem_valid & ~owned_mem
+    oldest = torch.argmin(torch.where(
+        elig, st.mem_stamp, torch.full_like(st.mem_stamp,
+                                            torch.iinfo(torch.int32).max)))
+    T_opt, _ = pose_graph.optimize(st.mem_T_wk, st.mem_valid, full,
+                                   n_iters=cfg.online_loop_iters,
+                                   fixed=oldest)
+
+    # trust guard over every valid slot's correction (owned slots move by
+    # the newest keyframe's delta) and the adaptive significance floor
+    T_new_opt = index0(T_opt, m_new)
+    T_new_old = index0(st.mem_T_wk, m_new)
+    dr, dt = se3.distance(T_new_opt, T_new_old)
+    dr_all, dt_all = se3.distance(T_opt, st.mem_T_wk)
+    zero = torch.zeros_like(dt_all)
+    dt_max = torch.maximum(torch.where(elig, dt_all, zero).max(), dt)
+    dr_max = torch.maximum(torch.where(elig, dr_all, zero).max(), dr)
+    noise_t = torch.where(meas.accept, meas.rt_t,
+                          torch.zeros_like(meas.rt_t)).max()
+    noise_r = torch.where(meas.accept, meas.rt_r,
+                          torch.zeros_like(meas.rt_r)).max()
+    floor_t = torch.clamp(cfg.online_loop_noise_k * noise_t,
+                          min=cfg.online_loop_min_t)
+    floor_r = torch.clamp(cfg.online_loop_noise_k * noise_r,
+                          min=cfg.online_loop_min_r)
+    apply = ((n_edges > 0)
+             & (dt_max < cfg.online_loop_max_t)
+             & (dr_max < cfg.online_loop_max_r)
+             & ((dt > floor_t) | (dr > floor_r))
+             & elig.any() & torch.all(torch.isfinite(T_opt)))
+
+    # the window moves rigidly by the newest keyframe's delta; the bank
+    # outside it takes the optimum
+    delta = se3.compose(T_new_opt, se3.inverse(T_new_old))
+    kf_T_new = torch.where(st.kf_valid[:, None, None],
+                           se3.compose(delta, st.kf_T_wk), st.kf_T_wk)
+    mem_T_new = torch.where(
+        owned_mem[:, None, None], se3.compose(delta, st.mem_T_wk),
+        torch.where(st.mem_valid[:, None, None], T_opt, st.mem_T_wk))
+    inv_d = se3.inverse(delta)
+    return st._replace(
+        kf_T_wk=torch.where(apply, kf_T_new, st.kf_T_wk),
+        mem_T_wk=torch.where(apply, mem_T_new, st.mem_T_wk),
+        T_cw=torch.where(apply, se3.compose(st.T_cw, inv_d), st.T_cw),
+        T_pw=torch.where(apply, se3.compose(st.T_pw, inv_d), st.T_pw),
+        n_loop_closures=torch.where(apply, st.n_loop_closures + n_edges,
+                                    st.n_loop_closures),
+        last_loop_mem=torch.where(apply, st.mem_next, st.last_loop_mem))
 
 
 def _rebuild_template(cfg: SvoConfig, state: SlamState, pyr_l, gxs, gys,
@@ -208,7 +302,7 @@ def make_phases(cfg: SvoConfig):
             st.mem_valid, st.mem_stamp, torch.full_like(st.mem_stamp, -1)))
         reloc = torch.where(reloc_score >= cfg.reloc_min_score,
                             reloc.long(), latest)
-        T_reloc_wk = _index0(st.mem_T_wk, reloc)
+        T_reloc_wk = index0(st.mem_T_wk, reloc)
         T_kf_rel = se3.compose(se3.inverse(T_reloc_wk), se3.inverse(st.T_pw))
         T_init = torch.where(st.tracking_ok, T_init_vel, T_kf_rel)
         T_cp, align_stats = align_ops.align(pyr_l, st.tmpl, cam, cfg, T_init)
@@ -330,7 +424,7 @@ def make_phases(cfg: SvoConfig):
         z_cur = se3.transform(T_cw, world_points(cfg, st))[..., 2]
         med_depth = _masked_median(z_cur, st.status > 0)
         c_cur = se3.translation(se3.inverse(T_prior))
-        c_kf = se3.translation(_index0(st.kf_T_wk, st.last_kf))
+        c_kf = se3.translation(index0(st.kf_T_wk, st.last_kf))
         kf_dist = torch.sqrt(torch.sum((c_cur - c_kf) ** 2))
         regular = ((n_inl < cfg.kf_min_tracked)
                    | (kf_dist > cfg.kf_dist_ratio * med_depth))
@@ -356,15 +450,19 @@ def make_phases(cfg: SvoConfig):
         return st, ctx
 
     def kf_phase(st: SlamState, pyr_l, gxs, gys, img_r,
-                 T_cw: torch.Tensor) -> SlamState:
+                 T_cw: torch.Tensor, run_loop: bool = False) -> SlamState:
+        """Insert the keyframe, run window BA, then the online loop closure
+        when the host's ``run_loop`` (:func:`loop_due`) says it is due."""
         st = keyframe.insert(cfg, st, pyr_l, gxs, gys, img_r, T_cw)
         if cfg.use_ba:
             st = run_window_ba(cfg, st)
+        if run_loop:
+            st = run_online_loop(cfg, st)
         return st
 
     def post_phase(st: SlamState, pyr_l, gxs, gys, ctx: TrackCtx
                    ) -> Tuple[SlamState, FrameOut]:
-        T_cw_kf = se3.inverse(_index0(st.kf_T_wk, st.last_kf))
+        T_cw_kf = se3.inverse(index0(st.kf_T_wk, st.last_kf))
         T_cw = torch.where(ctx.need_kf, T_cw_kf, ctx.T_cw)
         # --- 7. re-anchor next frame's alignment template (the stereo
         # depth override holds only on non-keyframe frames) ---
@@ -391,47 +489,110 @@ def make_phases(cfg: SvoConfig):
     return boot, track_phase, kf_phase, post_phase
 
 
-def check_supported(cfg: SvoConfig) -> None:
-    """Raise NotImplementedError for a knob this port does not carry yet,
-    naming the ROADMAP item that will port it. ``dtype`` picks the matmul
-    dtype of the reference's TPU-only MXU sampler; the gather sampler, which
-    the reference runs off the TPU and the port follows, ignores it."""
-    if cfg.online_loop_every > 0:
-        raise NotImplementedError(
-            "online_loop_every>0: online loop closure is ROADMAP item A16")
+def loop_due(cfg: SvoConfig, mem_next: int, last_loop_mem: int) -> bool:
+    """The reference's online-loop cadence and cooldown, decided for the
+    keyframe about to be inserted (the bank's ``mem_next`` before the
+    insertion): every ``online_loop_every``-th keyframe created, and more
+    than ``online_loop_cooldown`` keyframes after the last correction."""
+    n = mem_next + 1
+    return (cfg.online_loop_every > 0 and n % cfg.online_loop_every == 0
+            and n - last_loop_mem > cfg.online_loop_cooldown)
+
+
+def _read_decisions(cfg: SvoConfig, tracked) -> List[Tuple[bool, bool,
+                                                            bool]]:
+    """The step's one host sync, for every (state, TrackCtx) in
+    ``tracked``: (need_kf, ok, run the online loop at this keyframe)."""
+    loop = cfg.online_loop_every > 0
+    vals = []
+    for st, ctx in tracked:
+        row = [ctx.need_kf, ctx.ok]
+        if loop:
+            row = [x.to(_I32) for x in row + [st.mem_next, st.last_loop_mem]]
+        vals.extend(row)
+    vals = torch.stack(vals).tolist()
+    width = 4 if loop else 2
+    out = []
+    for k in range(len(tracked)):
+        r = vals[k * width:(k + 1) * width]
+        need_kf, ok = bool(r[0]), bool(r[1])
+        out.append((need_kf, ok,
+                    need_kf and loop and loop_due(cfg, r[2], r[3])))
+    return out
+
+
+def make_batched_step(cfg: SvoConfig):
+    """The per-frame step over a batch of B sequences:
+    ``bstep(states, img_l, img_r, flags=None) -> (states, outs, flags)``
+    with lists of B states, FrameOuts and HostFlags, and (B,H,W) images.
+
+    The reference vmaps each phase over a stacked state and runs the
+    keyframe phase under one batch-level ``lax.cond``, keeping each
+    sequence's result with ``where(need_kf, …)``. Here the step branches on
+    the host, so each sequence keeps its own state and runs its own phases:
+    ``track_phase`` for every booted sequence, one host sync for the whole
+    batch (every sequence's need_kf, ok and online-loop decision), then
+    ``kf_phase`` only for the sequences that need it and ``boot`` for those
+    with no keyframe, so sequence b's results are bit for bit those of a
+    batch of one (``make_step``) on sequence b alone. One launch for the
+    whole batch needs B3 and B4 with a problem axis (ROADMAP queue B).
+    """
+    boot, track_phase, kf_phase, post_phase = make_phases(cfg)
+
+    def bstep(states: List[SlamState], img_l: torch.Tensor,
+              img_r: torch.Tensor, flags: Optional[List[HostFlags]] = None
+              ) -> Tuple[List[SlamState], List[FrameOut], List[HostFlags]]:
+        if flags is None:
+            flags = [host_flags(st) for st in states]
+        B = len(states)
+        pyrs = [pyramid.build_with_gradients(img_l[b], cfg.num_levels)
+                for b in range(B)]
+        tracked = {b: track_phase(states[b], *pyrs[b], img_r[b],
+                                  prev_ok=flags[b].tracking_ok)
+                   for b in range(B) if flags[b].booted}
+        decisions = dict(zip(tracked, _read_decisions(
+            cfg, list(tracked.values())))) if tracked else {}
+        new_states, outs, new_flags = [], [], []
+        for b in range(B):
+            if b not in tracked:
+                st, out = boot(states[b], *pyrs[b], img_r[b])
+                ok = True
+            else:
+                st, ctx = tracked[b]
+                need_kf, ok, run_loop = decisions[b]
+                if need_kf:
+                    st = kf_phase(st, *pyrs[b], img_r[b], ctx.T_cw, run_loop)
+                st, out = post_phase(st, *pyrs[b], ctx)
+            new_states.append(st)
+            outs.append(out)
+            new_flags.append(HostFlags(booted=True, tracking_ok=ok))
+        return new_states, outs, new_flags
+
+    return bstep
 
 
 def make_step(cfg: SvoConfig):
     """The per-frame step for a static config:
-    ``step(state, img_l, img_r, flags=None) -> (state, FrameOut, flags)``.
+    ``step(state, img_l, img_r, flags=None) -> (state, FrameOut, flags)``,
+    the batched step on a batch of one.
 
     ``flags`` (``HostFlags``) carries what the host knows between frames;
     without it the step reads it from the state (one extra host sync).
     Images are contiguous float32 (H,W) tensors on the state's device.
     """
-    check_supported(cfg)
-    boot, track_phase, kf_phase, post_phase = make_phases(cfg)
+    bstep = make_batched_step(cfg)
 
     def step(state: SlamState, img_l: torch.Tensor, img_r: torch.Tensor,
              flags: Optional[HostFlags] = None
              ) -> Tuple[SlamState, FrameOut, HostFlags]:
-        if flags is None:
-            flags = host_flags(state)
-        pyr_l, gxs, gys = pyramid.build_with_gradients(img_l, cfg.num_levels)
-        if not flags.booted:
-            st, out = boot(state, pyr_l, gxs, gys, img_r)
-            return st, out, HostFlags(booted=True, tracking_ok=True)
-        st, ctx = track_phase(state, pyr_l, gxs, gys, img_r,
-                              prev_ok=flags.tracking_ok)
-        # the step's one host sync
-        need_kf, ok = torch.stack([ctx.need_kf, ctx.ok]).tolist()
-        if need_kf:
-            st = kf_phase(st, pyr_l, gxs, gys, img_r, ctx.T_cw)
-        st, out = post_phase(st, pyr_l, gxs, gys, ctx)
-        return st, out, HostFlags(booted=True, tracking_ok=bool(ok))
+        (st,), (out,), (flags,) = bstep(
+            [state], img_l[None], img_r[None],
+            None if flags is None else [flags])
+        return st, out, flags
 
     return step
 
 
-__all__ = ["make_step", "make_phases", "run_window_ba", "world_points",
-           "HostFlags", "host_flags", "check_supported"]
+__all__ = ["make_step", "make_batched_step", "make_phases", "run_window_ba",
+           "run_online_loop", "loop_due", "world_points", "HostFlags",
+           "host_flags"]

@@ -338,10 +338,11 @@ def test_cuda_gn_accumulate(cuda_device, N):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(376, 1241), (188, 620), (94, 310),
-                                   (47, 155), (30, 47)])
+                                   (47, 155), (30, 47), (120, 188)])
 def test_cuda_pyramid_kernels_odd_shapes(cuda_device, shape):
     """The KITTI pyramid (1241 wide, then 620, 310, 155; odd trailing
-    columns dropped) and the stress pyramid's level 4 (47×30): exact."""
+    columns dropped), the stress pyramid's level 4 (47×30) and the
+    752×480 keyframe thumbnail (120×188, loop-edge measurement): exact."""
     img = _t(_img(14, *shape), cuda_device)
     half = pyramid_kernel.halfsample(img)
     assert half.shape == (shape[0] // 2, shape[1] // 2)
@@ -430,7 +431,10 @@ PHASE2_B3 = [((480, 752), 192, 8, 1),     # KLT, every iteration
              ((188, 620), 3840, 8, 1),    # epipolar probes
              ((480, 752), 192, 16, 1),    # oversized affine-KLT templates
              ((376, 1241), 240, 8, 1),    # KITTI KLT
-             ((480, 752), 2048, 8, 1)]    # stress KLT
+             ((480, 752), 2048, 8, 1),    # stress KLT
+             ((120, 188), 192, 4, 3),     # loop edges: thumbnail template
+             ((120, 188), 192, 4, 1),     # loop edges: inner passes
+             ((94, 310), 240, 4, 3)]      # KITTI thumbnail template
 
 
 def _hazard_centres(h, w, P, n, seed):
@@ -511,3 +515,31 @@ def test_cuda_gn_accumulate_is_one_launch(cuda_device):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     assert len(kernels) == 3, kernels
     assert all("gn_accumulate_kernel" in k for k in kernels), kernels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,N", [((120, 188), 192), ((94, 310), 240)])
+def test_cuda_gn_accumulate_thumbnail(cuda_device, shape, N):
+    """B4 at the keyframe thumbnails of loop-edge measurement (752×480 and
+    KITTI), P = loop_patch = 4: counts exact, H, g and cost within 4e-7 of
+    each output's largest entry, bit-reproducible."""
+    P, k = 4, 8.0
+    h, w = shape
+    rng = np.random.default_rng(N)
+    img = _t(_img(16, h, w), cuda_device)
+    uv = _t(np.stack([rng.uniform(2, w - 3, N), rng.uniform(2, h - 3, N)],
+                     -1).astype(np.float32), cuda_device)
+    tmpl = _t(rng.uniform(0, 255, (N, P * P)).astype(np.float32), cuda_device)
+    jac = _t(rng.normal(0, 1, (N, P * P, 6)).astype(np.float32), cuda_device)
+    mask = _t(_pixel_mask(17, N=N), cuda_device)
+    ab = (torch.tensor(1.3, device=cuda_device),
+          torch.tensor(-7.0, device=cuda_device))
+    args = (img, uv, tmpl, jac, mask, P, k, *ab)
+    ours = align_kernel.gn_accumulate(*args)
+    plain = align_kernel.gn_accumulate_plain(*args)
+    for a, b in zip(ours[:3], plain[:3]):
+        err = float(torch.max(torch.abs(a - b)))
+        assert err <= 4e-7 * float(torch.max(torch.abs(b))), err
+    torch.testing.assert_close(ours[3:], plain[3:], rtol=0, atol=0)
+    again = align_kernel.gn_accumulate(*args)
+    assert all(torch.equal(a, b) for a, b in zip(ours, again))
