@@ -67,15 +67,43 @@ Phases, one result line each, in order:
      run_sequence_batched; gates ATE and tracking per sequence, one host
      sync per batched frame after the first, and sequence 0's poses equal
      to phase 3's first 25 bit for bit; reports the aggregate frames/s.
+  9. tracking loss and relocalisation: SvoConfig(kf_dist_ratio=0.05) over
+     the first 48 frames of phase 7's sequence with frames 20-22 blacked
+     out (zeros), as tests/test_engine.py sets it up; gates tracking_ok
+     false exactly on those frames and true from the next real frame on,
+     finite poses, the keyframe frames equal to the JAX CPU reference, tail
+     error and ATE within BLACKOUT_TOL_M of it, one host sync on every
+     tracked frame (the failed ones included), and the rotated
+     relocalisation variants computed on each frame after a failed one;
+  10. the command-line app in-process: cli.main(--dataset synthetic
+     --frames 60 --loop-closure --metrics-out ... --out ...) on the card,
+     writing under build/; gates the summary's keys, ATE and tracking, one
+     TUM line per frame that load_tum reads back (stamps i*0.1, ATE of the
+     file's positions equal to the summary's), one host sync per frame
+     inside the frame loop; then checkpoint and resume: 30 frames of phase
+     3's sequence, utils/checkpoint.save, load into a fresh StereoSvo on
+     the card, 30 more frames, whose poses must equal phase 3's bit for
+     bit; reports the milliseconds of save and load;
+  11. the global map: the final states of two of phase 8's sequences into
+     parallel/mapping.build_global_map (20 poses, 384 landmarks), then
+     detect_loop_edges and optimize_global_map over an nccl process group
+     of world size 1 on the card; gates finite output, every valid
+     keyframe moved by less than MAP_MAX_MOVE_M, and the sharded BA at
+     world size 1 within MAP_BA_TOL of the single-process ba_iteration
+     loop on the same inputs; reports launches, device ms and wall ms of
+     the call and of its pose-graph and BA parts. The machine has one GPU:
+     no multi-rank NCCL run is made here (the multi-rank check is the gloo
+     CPU dry run of tests/test_torch_parallel.py).
 Phase 2 also holds B2, B3 (K=3 and K=1) and B4 at the keyframe thumbnail
 (120x188, N=192, P=4, the centres a keyframe's features give it) that
 phase 7's edge measurements use.
-Each of phases 3-8 zeroes the launch counters just before its run, reads
+Each of phases 3-11 zeroes the launch counters just before its run, reads
 them just after, and fails unless every kernel launched; it counts host
 syncs on every frame of the run (CUDA sync debug mode) and fails unless
 the bootstrap frame has none and every other frame, keyframe frames with
 window BA, online loop closure and epipolar recoveries included, has
-exactly one (phase 8: per batched frame).
+exactly one (phase 8: per batched frame; phases 10 and 11 count them
+inside the frame loop only).
 Then phase2_rows (every kernel row with its launches per frame), the
 kernels JSON line (each kernel's main-path row, launches from phase 3),
 the nvidia-smi line, and last
@@ -117,6 +145,28 @@ PHASE7B_REF = dict(kf_frames=[0, 3, 6, 9, 14, 24, 28, 31, 34, 37, 41, 45, 51],
                    control_tail_err_m=0.0713019147515297)
 LOOP_TOL_M = 5e-3            # |card − reference| for tail error and ATE
 BATCH, BATCH_FRAMES = 8, 25  # bench.py:376-429
+# phase 9: tests/test_engine.py's blackout scenario at 752x480: the first
+# frames of phase 7's sequence with zeros for the blacked-out ones
+BLACKOUT_FRAMES, BLACKOUT = 48, (20, 21, 22)
+BLACKOUT_KNOBS = dict(kf_dist_ratio=0.05)  # a keyframe near every frame
+# the JAX package on the CPU over the same frames (recomputed by
+# tests/test_torch_chip_reference.py)
+PHASE9_REF = dict(kf_frames=[0, 3, 6, 10, 16, 24, 25, 29, 32, 35, 38, 42,
+                             47],
+                  lost_frames=[20, 21, 22],
+                  tail_err_m=0.016947779804468155,
+                  ate_m=0.051268993614293136)
+BLACKOUT_TOL_M = 5e-3        # |card − reference| for tail error and ATE
+# phase 10: the command-line app, then checkpoint and resume
+CLI_FRAMES, CLI_DT = 60, 0.1               # the CLI's synthetic sequence
+CLI_SUMMARY_KEYS = {"frames", "fps", "keyframes", "tracking_ok_frac",
+                    "mean_tracked", "loop_edges", "out", "ate_rmse_m",
+                    "rpe_t_m", "rpe_r_rad"}
+RESUME_AT, RESUME_FRAMES = 30, 60          # of phase 3's sequence
+# phase 11: the global map of two of phase 8's sequences
+MAP_MAX_MOVE_M = 0.05                      # tests/test_mapping.py:52
+MAP_BA_TOL = 1e-6            # sharded BA at world size 1 against the
+                             # single-process iterations (same sums)
 N_TIMED = 60                               # event-pair timing repetitions
 N_BACK = 200                               # back-to-back calls (device_us,
                                            # host_us)
@@ -641,9 +691,7 @@ def drive(cfg, lefts, rights, gt, counters, before_frame=None):
     n = lefts.shape[0]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for counts in counters:
-        for k in counts:
-            counts[k] = 0
+    zero_counters(counters)
     events, syncs, sync_sites = [], [], {}
     t_wall = time.perf_counter()
     for i in range(n):
@@ -736,20 +784,21 @@ def watch_calls(module, name, counters):
     orig = getattr(module, name)
     calls = []
 
-    def wrapped(*args):
+    def wrapped(*args, **kwargs):
         before = {k: v for c in counters for k, v in c.items()}
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         a.record()
-        out = orig(*args)
+        out = orig(*args, **kwargs)
         b.record()
         host_ms = (time.perf_counter() - t0) * 1e3
-        if calls:
-            del calls[-1]["args"]        # only the last call's are kept
+        if calls:                        # only the last call's are kept
+            del calls[-1]["args"], calls[-1]["kwargs"]
         calls.append({"launches": {k: v - before[k] for c in counters
                                    for k, v in c.items()},
-                      "host_ms": host_ms, "events": (a, b), "args": args})
+                      "host_ms": host_ms, "events": (a, b), "args": args,
+                      "kwargs": kwargs})
         return out
 
     setattr(module, name, wrapped)
@@ -870,9 +919,7 @@ def batched_run(cfg, counters, device, traj3):
             return out
         return step
 
-    for counts in counters:
-        for k in counts:
-            counts[k] = 0
+    zero_counters(counters)
     runner.make_batched_step = counted
     try:
         torch.cuda.synchronize()
@@ -911,6 +958,313 @@ def batched_run(cfg, counters, device, traj3):
     require(ok.mean(1).min() >= TRACK_GATE, f"batched tracking {ok.mean(1)}")
     require(out["seq0_equals_phase3"],
             "sequence 0 of the batch differs from phase 3's first frames")
+    return out, states
+
+
+def zero_counters(counters) -> None:
+    for counts in counters:
+        for k in counts:
+            counts[k] = 0
+
+
+def read_counters(counters, what: str, needs=None) -> dict:
+    """The launch counts since zero_counters; every kernel (or those named
+    in ``needs``) must have launched on the path ``what``."""
+    launches = {k: v for counts in counters for k, v in counts.items()}
+    missing = [k for k, v in launches.items()
+               if v <= 0 and (needs is None or k in needs)]
+    require(not missing, f"kernels never launched {what}: {missing}")
+    return launches
+
+
+def blackout_run(cfg, lefts, rights, gt, counters):
+    """Phase 9: StereoSvo over the frames with the BLACKOUT ones replaced
+    by zeros, every call of the rotated relocalisation variants watched.
+    drive() holds every tracked frame, the failed ones included, to one
+    host sync."""
+    import numpy as np
+    import torch
+    from stereo_svo_tpu_torch.backend import loop_closure
+
+    lefts, rights = lefts.clone(), rights.clone()
+    for i in BLACKOUT:
+        lefts[i] = 0.0
+        rights[i] = 0.0
+    with watch_calls(loop_closure, "rotated_descriptors", counters) as calls:
+        out, frame_ms, metrics, svo = drive(cfg, lefts, rights, gt, counters)
+    ok = metrics["tracking_ok"]
+    out.update(
+        lost_frames=np.nonzero(~ok)[0].tolist(),
+        kf_frames=np.nonzero(metrics["kf_inserted"])[0].tolist(),
+        tail_err_m=tail_err(svo.trajectory(), gt.cpu().numpy()),
+        rotated_variant_calls=len(calls),
+        n_alive_end=int((svo.state.status > 0).sum()),
+        failed_frame_ms=[frame_ms[i] for i in BLACKOUT],
+        recovery_frame_ms=frame_ms[BLACKOUT[-1] + 1])
+    return out, frame_ms
+
+
+def cli_run(counters, device):
+    """Phase 10, first half: the command-line app in-process on the card,
+    its output files under build/. Host syncs are counted inside every
+    new_image call of the frame loop (the rest of main renders, exports
+    and reads metrics, which sync by nature)."""
+    import io
+
+    import numpy as np
+    import torch
+    from stereo_svo_tpu_torch import cli
+    from stereo_svo_tpu_torch.engine.runner import StereoSvo
+    from stereo_svo_tpu_torch.eval import ate
+    from stereo_svo_tpu_torch.io import synthetic, trajectory
+
+    out_dir = os.path.join(ROOT, "build")
+    os.makedirs(out_dir, exist_ok=True)
+    traj_path = os.path.join(out_dir, "chip_smoke_cli.tum")
+    metrics_path = os.path.join(out_dir, "chip_smoke_cli_metrics.json")
+    syncs, sites = [], {}
+    new_image = StereoSvo.new_image
+
+    def counted(self, left, right):
+        out, n, where = count_syncs(lambda: new_image(self, left, right))
+        syncs.append(n)
+        for key, v in where.items():
+            sites[key] = sites.get(key, 0) + v
+        return out
+
+    zero_counters(counters)
+    stdout, stderr = io.StringIO(), io.StringIO()
+    StereoSvo.new_image = counted
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout), \
+                contextlib.redirect_stderr(stderr):
+            cli.main(["--dataset", "synthetic", "--frames", str(CLI_FRAMES),
+                      "--loop-closure", "--metrics-out", metrics_path,
+                      "--out", traj_path, "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        StereoSvo.new_image = new_image
+    launches = read_counters(counters, "by the CLI")
+    summary = json.loads(stdout.getvalue().strip().splitlines()[-1])
+    require(set(summary) == CLI_SUMMARY_KEYS, f"summary keys {set(summary)}")
+    with open(metrics_path) as f:
+        doc = json.load(f)
+    require(doc["summary"] == summary and
+            len(doc["tracking_ok"]) == CLI_FRAMES,
+            "the metrics file does not hold the summary and one entry per "
+            "frame")
+    lines = open(traj_path).read().splitlines()
+    ts, pos = trajectory.load_tum(traj_path)
+    gt = torch.stack([synthetic.trajectory_pose(
+        torch.tensor(i * CLI_DT, dtype=torch.float32, device=device), "arc")
+        for i in range(CLI_FRAMES)]).cpu().numpy()
+    file_ate = ate.ate_rmse(pos, ate.positions(gt))
+    out = {"argv": "--dataset synthetic --frames 60 --loop-closure "
+                   "--metrics-out ... --out ... --device cuda",
+           "summary": summary, "wall_seconds": wall_s,
+           "progress_lines": stderr.getvalue().strip().splitlines(),
+           "tum_lines": len(lines), "tum_ate_m": file_ate,
+           "launches": launches,
+           "launches_per_frame": {k: v / CLI_FRAMES
+                                  for k, v in launches.items()},
+           "host_syncs_per_frame": {str(c): syncs.count(c)
+                                    for c in sorted(set(syncs))},
+           "sync_sites": sites}
+    require(summary["frames"] == CLI_FRAMES and len(syncs) == CLI_FRAMES,
+            f"{summary['frames']} frames, {len(syncs)} new_image calls")
+    require(syncs[0] == 0 and all(c == 1 for c in syncs[1:]),
+            f"CLI host syncs per frame {syncs}: {sites}")
+    require(summary["ate_rmse_m"] <= ATE_GATE_M,
+            f"CLI ATE {summary['ate_rmse_m']} m above {ATE_GATE_M}")
+    require(summary["tracking_ok_frac"] >= TRACK_GATE,
+            f"CLI tracking_ok {summary['tracking_ok_frac']}")
+    require(len(lines) == CLI_FRAMES and pos.shape == (CLI_FRAMES, 3)
+            and np.allclose(ts, np.arange(CLI_FRAMES) * 0.1, atol=1e-6),
+            "the TUM file does not hold one stamped line per frame")
+    # the file keeps 6 decimals of each coordinate
+    require(abs(file_ate - summary["ate_rmse_m"]) <= 2e-6,
+            f"ATE of the TUM file {file_ate}, of the run "
+            f"{summary['ate_rmse_m']}")
+    return out
+
+
+def resume_run(cfg, lefts, rights, traj3, counters):
+    """Phase 10, second half: RESUME_AT frames, checkpoint.save, load into
+    a fresh StereoSvo on the card, on to RESUME_FRAMES; the continued poses
+    against the uninterrupted run's (phase 3's trajectory ``traj3``)."""
+    import numpy as np
+    import torch
+    from stereo_svo_tpu_torch.engine.runner import StereoSvo
+    from stereo_svo_tpu_torch.utils import checkpoint, profiling
+
+    path = os.path.join(ROOT, "build", "chip_smoke_checkpoint.npz")
+    zero_counters(counters)
+    first = StereoSvo(cfg, device="cuda")
+    for i in range(RESUME_AT):
+        first.new_image(lefts[i], rights[i])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save(path, first.state)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    # the port's own harness on the card (CUDA events: the state is there)
+    save_ms_time_fn = profiling.time_fn(checkpoint.save, path, first.state,
+                                        iters=3, warmup=1) * 1e3
+    resumed = StereoSvo(cfg, device="cuda")
+    t0 = time.perf_counter()
+    state = checkpoint.load(path, resumed.state)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    keys = checkpoint.key_paths(state)
+    require(all(a.device.type == "cuda" and a.dtype == b.dtype
+                and a.shape == b.shape
+                for a, b in zip((v for _, v in checkpoint.flatten(state)),
+                                (v for _, v in
+                                 checkpoint.flatten(first.state)))),
+            "the loaded state is not on the card with the saved dtypes")
+    resumed.resume(state)
+    for i in range(RESUME_AT, RESUME_FRAMES):
+        resumed.new_image(lefts[i], rights[i])
+    got = resumed.trajectory()
+    launches = read_counters(counters, "by the checkpointed run")
+    equal = bool(np.array_equal(got, traj3[RESUME_AT:RESUME_FRAMES]))
+    out = {"frames_before": RESUME_AT, "frames_after":
+           RESUME_FRAMES - RESUME_AT, "leaves": len(keys),
+           "file_mb": os.path.getsize(path) / 2**20, "save_ms": save_ms,
+           "save_ms_time_fn_median_of_3": save_ms_time_fn,
+           "load_ms": load_ms, "launches": launches,
+           "resumed_equals_phase3": equal,
+           "max_abs_diff": float(np.abs(
+               got - traj3[RESUME_AT:RESUME_FRAMES]).max())}
+    require(equal, "the resumed run's poses differ from the uninterrupted "
+                   f"run's (max {out['max_abs_diff']})")
+    return out
+
+
+def index_state(states, b: int):
+    """Sequence b of a stacked (leading-B) state."""
+    if isinstance(states, tuple):
+        return type(states)(*(index_state(f, b) for f in states))
+    return states[b]
+
+
+def global_map_run(cfg, states, counters):
+    """Phase 11: two sequences' final states as one global map, loop
+    detection over it, then the pose graph and the sharded BA over an nccl
+    process group of world size 1 on the card."""
+    import numpy as np
+    import torch
+    from stereo_svo_tpu_torch.backend import ba, pose_graph
+    from stereo_svo_tpu_torch.geometry import se3
+    from stereo_svo_tpu_torch.parallel import dist_ba, mapping
+    from stereo_svo_tpu_torch.parallel import mesh as mesh_mod
+
+    def wall_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    zero_counters(counters)
+    gmap = mapping.build_global_map(cfg, [index_state(states, b)
+                                          for b in (0, 1)])
+    K, N = cfg.max_keyframes, cfg.max_features
+    require(tuple(gmap.kf_T_wk.shape) == (2 * K, 3, 4)
+            and tuple(gmap.obs_uv.shape) == (2 * K, 2 * N, 2)
+            and not bool(gmap.obs_mask[:K, N:].any())
+            and not bool(gmap.obs_mask[K:, :N].any()),
+            "the global map is not block-diagonal (20 poses, 384 landmarks)")
+    (graph, meas), detect_ms = wall_ms(
+        lambda: mapping.detect_loop_edges(cfg, gmap))
+    detect_launches = {k: v for c in counters for k, v in c.items()}
+
+    t0 = time.perf_counter()
+    mesh_mod.initialize_multihost(device="cuda", world_size=1, rank=0)
+    mesh = mesh_mod.make(1, axis_name="kf")
+    init_ms = (time.perf_counter() - t0) * 1e3
+    try:
+        def optimize():
+            return mapping.optimize_global_map(mesh, cfg.camera, cfg, gmap,
+                                               loop_edges=graph)
+
+        # the first call pays for the nccl communicator (made at the first
+        # all-reduce) and the first jacfwd at this size; the second is warm
+        (refined, pg_cost), first_ms = wall_ms(optimize)
+        with watch_calls(pose_graph, "optimize", counters) as pg_calls, \
+                watch_calls(dist_ba, "bundle_adjust_sharded",
+                            counters) as ba_calls:
+            (again, _), opt_ms = wall_ms(optimize)
+            ba_args, ba_kwargs = ba_calls[-1]["args"], ba_calls[-1]["kwargs"]
+        repeats = bool(torch.equal(again.kf_T_wk, refined.kf_T_wk)
+                       and torch.equal(again.X, refined.X))
+        # the map is built from stored thumbnails: no pyramid, so no B1
+        launches = read_counters(counters, "by the global map",
+                                 needs=("gradients", "sample_patches",
+                                        "gn_accumulate"))
+        opt_launches, opt_dev_ms = prof_stats(optimize)
+        ba_launches, ba_dev_ms = prof_stats(
+            lambda: dist_ba.bundle_adjust_sharded(*ba_args, **ba_kwargs))
+        (T_ba, X_ba), ba_ms = wall_ms(
+            lambda: dist_ba.bundle_adjust_sharded(*ba_args, **ba_kwargs))
+    finally:
+        mesh_mod.shutdown()
+
+    # the same iterations in one process, no reduction
+    _, cam, _, T_pg, valid, X, X_mask, obs_uv, obs_mask, disp, dmask = ba_args
+    fixed = ba_kwargs["fixed_mask"]
+    T_kw, X1 = se3.inverse(T_pg), X
+    w_rows = ba.obs_weights(valid, X_mask, obs_mask, dmask)
+    for _ in range(cfg.ba_iters):
+        T_kw, X1, _ = ba.ba_iteration(cam, cfg, T_kw, X1, obs_uv,
+                                      obs_uv[..., 0] - disp, w_rows, fixed,
+                                      solver="direct")
+    T_one = se3.inverse(T_kw)
+    ba_diff = max(float((T_ba - T_one).abs().max()),
+                  float((X_ba - X1).abs().max()))
+    moved = [float(se3.distance(refined.kf_T_wk[k], gmap.kf_T_wk[k])[1])
+             for k in torch.nonzero(gmap.kf_valid)[:, 0].tolist()]
+    finite = bool(torch.isfinite(refined.kf_T_wk).all()
+                  & torch.isfinite(refined.X).all()
+                  & torch.isfinite(pg_cost))
+    ev = lambda c: c["events"][0].elapsed_time(c["events"][1])  # noqa: E731
+    out = {
+        "sequences": [0, 1], "poses": 2 * K, "landmarks": 2 * N,
+        "valid_keyframes": int(gmap.kf_valid.sum()),
+        "live_landmarks": int(gmap.X_mask.sum()),
+        "backend": "nccl", "world_size": 1,
+        "multi_rank_nccl": "not run: this machine has one GPU; the "
+                           "multi-rank check is the gloo CPU dry run of "
+                           "tests/test_torch_parallel.py",
+        "process_group_init_ms": init_ms,
+        "loop_edges_accepted": int(graph.weight.sum()),
+        "loop_edges_proposed": int(graph.weight.shape[0]),
+        "detect_wall_ms": detect_ms, "detect_kernel_launches":
+            detect_launches,
+        "optimize_first_call_wall_ms": first_ms,
+        "optimize_wall_ms": opt_ms, "optimize_repeats_bit_for_bit": repeats,
+        "optimize_launches": opt_launches,
+        "optimize_device_ms": opt_dev_ms,
+        "pose_graph_host_ms": pg_calls[-1]["host_ms"],
+        "pose_graph_event_ms": ev(pg_calls[-1]),
+        "sharded_ba_host_ms": ba_calls[-1]["host_ms"],
+        "sharded_ba_event_ms": ev(ba_calls[-1]),
+        "sharded_ba_wall_ms": ba_ms, "sharded_ba_launches": ba_launches,
+        "sharded_ba_device_ms": ba_dev_ms,
+        "pose_graph_cost": float(pg_cost), "finite": finite,
+        "max_keyframe_move_m": max(moved),
+        "sharded_ba_vs_single_process_max_abs": ba_diff,
+        "sharded_ba_bit_equal": bool(torch.equal(T_ba, T_one)
+                                     and torch.equal(X_ba, X1)),
+        "launches": launches}
+    require(finite, "the refined map is not finite")
+    require(max(moved) < MAP_MAX_MOVE_M,
+            f"a keyframe moved {max(moved)} m (limit {MAP_MAX_MOVE_M})")
+    require(ba_diff <= MAP_BA_TOL,
+            f"sharded BA at world size 1 differs from the single-process "
+            f"iterations by {ba_diff}")
     return out
 
 
@@ -1108,7 +1462,6 @@ def main() -> int:
     require(phase7["loop_calls"] == len(ref["kf_frames"]) - 1,
             f"{phase7['loop_calls']} online-loop calls, want one per "
             f"keyframe after the bootstrap")
-    del l_lefts, l_rights
 
     # ---- phase 7b: a correction folded in, the test rig at 752x480 ----
     mark("phase7b")
@@ -1155,9 +1508,50 @@ def main() -> int:
 
     # ---- phase 8: batched-8 ----
     mark("phase8")
-    phase8 = batched_run(cfg, counters, device, svo3.trajectory())
+    phase8, states8 = batched_run(cfg, counters, device, svo3.trajectory())
     emit("phase8", phase8)
     detail["phase8"] = phase8
+
+    # ---- phase 9: tracking loss and relocalisation ----
+    mark("phase9")
+    n9 = BLACKOUT_FRAMES
+    phase9, frame_ms = blackout_run(SvoConfig(**BLACKOUT_KNOBS), l_lefts[:n9],
+                                    l_rights[:n9], l_gt[:n9], counters)
+    phase9.update(config="SvoConfig(kf_dist_ratio=0.05)", scene="planes",
+                  traj="loop", dt=LOOP_DT, blackout=list(BLACKOUT),
+                  reference=PHASE9_REF, tol_m=BLACKOUT_TOL_M)
+    emit("phase9", phase9)
+    detail.update(phase9=phase9, phase9_frame_ms=frame_ms)
+    require(phase9["lost_frames"] == PHASE9_REF["lost_frames"]
+            == list(BLACKOUT),
+            f"tracking lost on {phase9['lost_frames']}, blacked out "
+            f"{list(BLACKOUT)}")
+    require(phase9["kf_frames"] == PHASE9_REF["kf_frames"],
+            f"keyframes {phase9['kf_frames']}, reference "
+            f"{PHASE9_REF['kf_frames']}")
+    for key in ("tail_err_m", "ate_m"):
+        require(abs(phase9[key] - PHASE9_REF[key]) <= BLACKOUT_TOL_M,
+                f"{key} {phase9[key]}, reference {PHASE9_REF[key]}")
+    # the variants are computed when the previous frame failed: on the
+    # second and third blacked-out frames and on the recovery frame
+    require(phase9["rotated_variant_calls"] == len(BLACKOUT),
+            f"{phase9['rotated_variant_calls']} calls of the rotated "
+            f"relocalisation variants, want {len(BLACKOUT)}")
+    del l_lefts, l_rights
+
+    # ---- phase 10: the CLI, then checkpoint and resume ----
+    mark("phase10")
+    phase10 = {"cli": cli_run(counters, device)}
+    phase10["checkpoint"] = resume_run(cfg, lefts, rights,
+                                       svo3.trajectory(), counters)
+    emit("phase10", phase10)
+    detail["phase10"] = phase10
+
+    # ---- phase 11: the global map over an nccl group of one ----
+    mark("phase11")
+    phase11 = global_map_run(cfg, states8, counters)
+    emit("phase11", phase11)
+    detail["phase11"] = phase11
     mark("end")
     emit("seconds", seconds)
     detail["seconds"] = seconds
@@ -1185,11 +1579,16 @@ def main() -> int:
     main_rows = {}
     for row in rows:                 # each kernel's first row: phase 3
         main_rows.setdefault(row["name"], row)
+    by_path = {"phase3": phase3["launches"], "phase9": phase9["launches"],
+               "phase10_cli": phase10["cli"]["launches"],
+               "phase10_checkpoint": phase10["checkpoint"]["launches"],
+               "phase11": phase11["launches"]}
     print(json.dumps({"kernels": [
-        {k: r[k] for k in ("name", "route", "source", "replaces", "launches",
-                           "max_abs_err", "max_rel_err", "ms", "plain_ms",
-                           "bound_ms", "bound_by", "library_ms", "device_us",
-                           "host_us")}
+        dict({k: r[k] for k in ("name", "route", "source", "replaces",
+                                "launches", "max_abs_err", "max_rel_err",
+                                "ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "device_us", "host_us")},
+             launches_by_path={p: v[r["name"]] for p, v in by_path.items()})
         for r in main_rows.values()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -61,6 +61,11 @@ def descriptor(img: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     return _normalized(grid[1:1 + rows, 1:1 + cols].reshape(-1))
 
 
+def similarity(desc: torch.Tensor, bank: torch.Tensor) -> torch.Tensor:
+    """(D,) query vs (K, D) bank → (K,) ZNCC scores in [-1, 1]."""
+    return bank @ desc
+
+
 def shifted_descriptors(img: torch.Tensor, rows: int, cols: int
                         ) -> torch.Tensor:
     """(9, rows*cols) descriptors of the ±1-cell-shifted pooling grids."""

@@ -18,7 +18,7 @@ import torch
 from ..config import SvoConfig
 from ..device import resolve
 from .state import FrameOut, SlamState, init_state
-from .step import HostFlags, make_batched_step, make_step
+from .step import HostFlags, host_flags, make_batched_step, make_step
 
 
 class StereoSvo:
@@ -47,6 +47,18 @@ class StereoSvo:
         self._trajectory.append(out.T_wc)
         self._metrics.append(out)
         return out
+
+    def resume(self, state: SlamState) -> None:
+        """Continue from ``state`` (a checkpoint loaded onto this engine's
+        device): the host's flags are read from it, one host sync."""
+        self.state = state
+        self._flags = host_flags(state)
+
+    @property
+    def tracking_ok(self) -> bool:
+        """Whether the last frame tracked: the host's copy of the flag,
+        read in the step's one sync (no device read here)."""
+        return self._flags.tracking_ok
 
     @property
     def pose(self) -> np.ndarray:

@@ -1,8 +1,10 @@
-"""The JAX CPU reference values that chip_smoke.py's phases 7 and 7b hold
-the port to on the card (``PHASE7_REF``, ``PHASE7B_REF``), recomputed: the
-JAX package over the same 60-frame out-and-back sequence at 752×480 with
-the same drift injected before frame 30, then ``refine_trajectory``.
-About three minutes of JAX on the CPU, so ``slow``.
+"""The JAX CPU reference values that chip_smoke.py's phases 7, 7b and 9
+hold the port to on the card (``PHASE7_REF``, ``PHASE7B_REF``,
+``PHASE9_REF``), recomputed: the JAX package over the same 60-frame
+out-and-back sequence at 752×480 with the same drift injected before frame
+30, then ``refine_trajectory``; and ``SvoConfig(kf_dist_ratio=0.05)`` over that
+sequence's first 48 frames with three of them blacked out.
+About four minutes of JAX on the CPU, so ``slow``.
 """
 
 import jax.numpy as jnp
@@ -66,3 +68,31 @@ def test_phase7b_reference():
     assert off["tail_err_m"] == pytest.approx(
         want.pop("control_tail_err_m"), rel=1e-5)
     _check(on, want)
+
+
+def test_phase9_reference():
+    """Tracking loss and relocalisation: which frames fail, the keyframe
+    frames, and the errors after recovery."""
+    cfg = SvoConfig(**chip_smoke.BLACKOUT_KNOBS)
+    n = chip_smoke.BLACKOUT_FRAMES
+    lefts, rights, gt = jsynth.make_sequence(
+        cfg.camera, n, dt=chip_smoke.LOOP_DT, kind="loop",
+        seed=chip_smoke.SEED)
+    gt = np.asarray(gt)
+    black = np.zeros_like(lefts[0])
+    svo = jrunner.StereoSvo(cfg)
+    for i in range(n):
+        if i in chip_smoke.BLACKOUT:
+            svo.new_image(black, black)
+        else:
+            svo.new_image(lefts[i], rights[i])
+    traj, metrics = svo.trajectory(), svo.metrics()
+    assert np.isfinite(traj).all()
+    got = dict(
+        kf_frames=np.nonzero(np.asarray(metrics["kf_inserted"]))[0].tolist(),
+        lost_frames=np.nonzero(~np.asarray(metrics["tracking_ok"]))[0]
+        .tolist(),
+        tail_err_m=chip_smoke.tail_err(traj, gt),
+        ate_m=ate.ate_rmse(ate.positions(traj), ate.positions(gt)))
+    print("PHASE9_REF =", got)
+    _check(got, chip_smoke.PHASE9_REF)
