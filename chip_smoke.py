@@ -34,8 +34,9 @@ Phases, one result line each, in order:
      gives it the shape (B1: 1.0 on every path, or the run fails);
   3. main path: SvoConfig() as shipped (window BA on) over the 100-frame
      synthetic arc sequence (752×480, dt 0.08, seed 0) rendered on the
-     card, through StereoSvo(cfg, device="cuda").new_image; ATE and
-     tracking gates, BA calls and acceptances, per-frame time;
+     card, through StereoSvo(cfg, device="cuda").new_image, which replays
+     the step's CUDA graphs (engine/graphed.py; phases 4-7b, 9 and 10 too);
+     ATE and tracking gates, BA calls and acceptances, per-frame time;
   4. kitti_config() as shipped (epipolar search on) over 100 frames of the
      road scene on the kitti trajectory at 1241×376, dt 0.08, seed 0,
      rendered with 2×2 anti-aliasing; gates ATE ≤ max(0.25 m, 1.5 % of the
@@ -94,6 +95,18 @@ Phases, one result line each, in order:
      the call and of its pose-graph and BA parts. The machine has one GPU:
      no multi-rank NCCL run is made here (the multi-rank check is the gloo
      CPU dry run of tests/test_torch_parallel.py).
+  12. graphed against eager: phase 3's frames through the eager step
+     (engine/step.make_step) with phase 3's accounting; gates the two
+     trajectories and every FrameOut field bit for bit equal (else names
+     the first frame and field that differ); reports frame ms median, p90,
+     tracked-frame and keyframe-frame medians of both, host CUDA launches
+     (kernels, graph launches, copies) and device ms of one tracked frame
+     of each under torch.profiler (the frame before it in the profiler's
+     warm-up step), whose device records of each hand-written kernel must
+     equal the launch counters' gain on it, the nodes of each graph (the
+     kernel nodes by the function's name, read through libcuda), capture
+     seconds and graph pool MB, and the device busy share of a replayed
+     tracked frame, which must lie in (0, 1].
 Phase 2 also holds B2, B3 (K=3 and K=1) and B4 at the keyframe thumbnail
 (120x188, N=192, P=4, the centres a keyframe's features give it) that
 phase 7's edge measurements use.
@@ -173,6 +186,8 @@ N_BACK = 200                               # back-to-back calls (device_us,
 # the runtime calls that launch a kernel, as torch.profiler names them
 LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
                "cuLaunchKernelEx")
+GRAPH_KEYS = ("cudaGraphLaunch", "cuGraphLaunch")
+COPY_KEYS = ("cudaMemcpyAsync", "cudaMemcpy", "cudaMemsetAsync")
 MEM_BYTES_PER_S = 3.35e12                  # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12                    # H100 SXM, float32, no tensor
                                            # cores
@@ -661,33 +676,91 @@ def count_syncs(fn):
     return out, len(hits), sites
 
 
-def prof_stats(fn):
-    """(CUDA launches, device ms) of ``fn()`` under torch.profiler."""
+def prof_launches(fn, warmup=None):
+    """{"kernels", "graphs", "copies", "total", "device_ms", "by_kernel"}
+    of ``fn()`` under torch.profiler: the host's kernel launches, graph
+    launches and memory copies, the device time of every CUDA record (the
+    kernels a replayed graph runs included), and the device's records of
+    each hand-written kernel, by launch counter. ``warmup()``, when given,
+    runs first, in the profiler's warm-up step, whose records are
+    discarded: the first graph replayed in a trace was seen to lose some
+    of its kernels' records on the H100."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as p:
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from stereo_svo_tpu_torch.engine import graphed
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)
+                 if warmup else None) as p:
+        if warmup:
+            warmup()
+            torch.cuda.synchronize()
+            p.step()
         fn()
         torch.cuda.synchronize()
     ka = p.key_averages()
-    launches = sum(e.count for e in ka if e.key in LAUNCH_KEYS)
-    dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in ka
-                 if str(getattr(e, "device_type", "")).endswith("CUDA"))
-    return launches, dev_us / 1e3
+    # with a schedule each step is also a user annotation on the device's
+    # timeline ("ProfilerStep#n"), spanning the step: no kernel
+    on_device = [e for e in ka
+                 if str(getattr(e, "device_type", "")).endswith("CUDA")
+                 and not e.key.startswith("ProfilerStep")]
+
+    def count(keys):
+        return sum(e.count for e in ka if e.key in keys)
+    out = {"kernels": count(LAUNCH_KEYS), "graphs": count(GRAPH_KEYS),
+           "copies": count(COPY_KEYS)}
+    out["total"] = sum(out.values())
+    out["device_ms"] = sum(getattr(e, "self_device_time_total", 0.0)
+                           for e in on_device) / 1e3
+    out["by_kernel"] = dict.fromkeys(graphed.KERNELS, 0)
+    for e in on_device:
+        key = graphed.counter_of(e.key)
+        if key is not None:
+            out["by_kernel"][key] += e.count
+    return out
 
 
-def drive(cfg, lefts, rights, gt, counters, before_frame=None):
-    """One run of StereoSvo over the frames with every launch counter set
-    to 0 just before and read just after: gates' inputs and timings, and
-    the StereoSvo. ``before_frame(i, svo)`` runs before frame i, outside
-    the frame's timing and sync count. Host syncs are counted on every
-    frame under CUDA sync debug mode."""
+class EagerSvo:
+    """The eager step (engine/step.make_step) driven as StereoSvo drives
+    the graphed one, with StereoSvo's trajectory() and metrics(): phase
+    12's and profile_step.py's eager runs."""
+
+    def __init__(self, cfg, device="cuda"):
+        from stereo_svo_tpu_torch.engine import state as state_mod
+        from stereo_svo_tpu_torch.engine import step as step_mod
+        self._step = step_mod.make_step(cfg)
+        self.state = state_mod.init_state(cfg, device)
+        self._flags = step_mod.HostFlags(booted=False, tracking_ok=True)
+        self.outs = []
+
+    def new_image(self, left, right):
+        self.state, out, self._flags = self._step(self.state, left, right,
+                                                  self._flags)
+        self.outs.append(out)
+        return out
+
+    def trajectory(self):
+        import torch
+        return torch.stack([o.T_wc for o in self.outs]).cpu().numpy()
+
+    def metrics(self):
+        import torch
+        return {k: torch.stack([getattr(o, k) for o in self.outs]).cpu()
+                .numpy() for k in self.outs[0]._fields if k != "T_wc"}
+
+
+def drive(cfg, lefts, rights, gt, counters, before_frame=None,
+          make_svo=None):
+    """One run of StereoSvo (or ``make_svo(cfg)``) over the frames with
+    every launch counter set to 0 just before and read just after: gates'
+    inputs and timings, and the StereoSvo. ``before_frame(i, svo)`` runs
+    before frame i, outside the frame's timing and sync count. Host syncs
+    are counted on every frame under CUDA sync debug mode."""
     import numpy as np
     import torch
     from stereo_svo_tpu_torch.engine.runner import StereoSvo
     from stereo_svo_tpu_torch.eval import ate
 
-    svo = StereoSvo(cfg, device="cuda")
+    svo = (make_svo or StereoSvo)(cfg, device="cuda")
     n = lefts.shape[0]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -737,6 +810,8 @@ def drive(cfg, lefts, rights, gt, counters, before_frame=None):
         "frame_ms_p90": statistics.quantiles(steady, n=10)[8],
         "kf_frame_ms_median": statistics.median(
             [frame_ms[i] for i in np.nonzero(ba_frames)[0]] or [0.0]),
+        "track_frame_ms_median": statistics.median(
+            [frame_ms[i] for i in range(1, n) if not kf[i]] or [0.0]),
         "fps": 1000.0 * len(steady) / sum(steady),
         "fps_wall_incl_first": n / wall_s, "first_frame_ms": frame_ms[0],
         "launches": launches,
@@ -779,12 +854,25 @@ def watch_calls(module, name, counters):
     """While the block runs, ``module.<name>`` (looked up at each call by
     its callers) is wrapped: per call, the launches each kernel counter
     gained, the host ms to issue it (no sync: the call makes none) and a
-    CUDA-event pair around it; the last call's arguments are kept."""
+    CUDA-event pair around it; the last call's arguments are kept, their
+    tensors cloned after the call (the graphed step's buffers they may lie
+    in are overwritten by later frames)."""
     import torch
     orig = getattr(module, name)
     calls = []
 
+    def keep(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(keep(v) for v in x))
+        return x
+
     def wrapped(*args, **kwargs):
+        if torch.cuda.is_current_stream_capturing():
+            # recorded into a graph of the step: its replays run it
+            calls.append({"capturing": True})
+            return orig(*args, **kwargs)
         before = {k: v for c in counters for k, v in c.items()}
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -794,11 +882,14 @@ def watch_calls(module, name, counters):
         b.record()
         host_ms = (time.perf_counter() - t0) * 1e3
         if calls:                        # only the last call's are kept
-            del calls[-1]["args"], calls[-1]["kwargs"]
+            calls[-1].pop("args", None)
+            calls[-1].pop("kwargs", None)
         calls.append({"launches": {k: v - before[k] for c in counters
                                    for k, v in c.items()},
-                      "host_ms": host_ms, "events": (a, b), "args": args,
-                      "kwargs": kwargs})
+                      "host_ms": host_ms, "events": (a, b),
+                      "capturing": False,
+                      "args": tuple(keep(x) for x in args),
+                      "kwargs": {k: keep(v) for k, v in kwargs.items()}})
         return out
 
     setattr(module, name, wrapped)
@@ -979,9 +1070,11 @@ def read_counters(counters, what: str, needs=None) -> dict:
 
 def blackout_run(cfg, lefts, rights, gt, counters):
     """Phase 9: StereoSvo over the frames with the BLACKOUT ones replaced
-    by zeros, every call of the rotated relocalisation variants watched.
-    drive() holds every tracked frame, the failed ones included, to one
-    host sync."""
+    by zeros. The rotated relocalisation variants run inside the step's
+    A_fail graph: the watched function must be recorded into that graph
+    once, and the graph replayed on each frame after a failed one. drive()
+    holds every tracked frame, the failed ones included, to one host
+    sync."""
     import numpy as np
     import torch
     from stereo_svo_tpu_torch.backend import loop_closure
@@ -997,7 +1090,9 @@ def blackout_run(cfg, lefts, rights, gt, counters):
         lost_frames=np.nonzero(~ok)[0].tolist(),
         kf_frames=np.nonzero(metrics["kf_inserted"])[0].tolist(),
         tail_err_m=tail_err(svo.trajectory(), gt.cpu().numpy()),
-        rotated_variant_calls=len(calls),
+        rotated_variant_calls=svo._step.replays["A_fail"],
+        rotated_variants_captured=sum(c["capturing"] for c in calls),
+        rotated_variants_eager=sum(not c["capturing"] for c in calls),
         n_alive_end=int((svo.state.status > 0).sum()),
         failed_frame_ms=[frame_ms[i] for i in BLACKOUT],
         recovery_frame_ms=frame_ms[BLACKOUT[-1] + 1])
@@ -1204,8 +1299,8 @@ def global_map_run(cfg, states, counters):
         launches = read_counters(counters, "by the global map",
                                  needs=("gradients", "sample_patches",
                                         "gn_accumulate"))
-        opt_launches, opt_dev_ms = prof_stats(optimize)
-        ba_launches, ba_dev_ms = prof_stats(
+        opt_prof = prof_launches(optimize)
+        ba_prof = prof_launches(
             lambda: dist_ba.bundle_adjust_sharded(*ba_args, **ba_kwargs))
         (T_ba, X_ba), ba_ms = wall_ms(
             lambda: dist_ba.bundle_adjust_sharded(*ba_args, **ba_kwargs))
@@ -1245,14 +1340,14 @@ def global_map_run(cfg, states, counters):
             detect_launches,
         "optimize_first_call_wall_ms": first_ms,
         "optimize_wall_ms": opt_ms, "optimize_repeats_bit_for_bit": repeats,
-        "optimize_launches": opt_launches,
-        "optimize_device_ms": opt_dev_ms,
+        "optimize_launches": opt_prof["kernels"],
+        "optimize_device_ms": opt_prof["device_ms"],
         "pose_graph_host_ms": pg_calls[-1]["host_ms"],
         "pose_graph_event_ms": ev(pg_calls[-1]),
         "sharded_ba_host_ms": ba_calls[-1]["host_ms"],
         "sharded_ba_event_ms": ev(ba_calls[-1]),
-        "sharded_ba_wall_ms": ba_ms, "sharded_ba_launches": ba_launches,
-        "sharded_ba_device_ms": ba_dev_ms,
+        "sharded_ba_wall_ms": ba_ms, "sharded_ba_launches": ba_prof["kernels"],
+        "sharded_ba_device_ms": ba_prof["device_ms"],
         "pose_graph_cost": float(pg_cost), "finite": finite,
         "max_keyframe_move_m": max(moved),
         "sharded_ba_vs_single_process_max_abs": ba_diff,
@@ -1265,6 +1360,92 @@ def global_map_run(cfg, states, counters):
     require(ba_diff <= MAP_BA_TOL,
             f"sharded BA at world size 1 differs from the single-process "
             f"iterations by {ba_diff}")
+    return out
+
+
+def graphed_vs_eager(cfg, lefts, rights, gt, counters, svo3, phase3):
+    """Phase 12: phase 3's frames through the eager step with phase 3's
+    accounting (drive()), against phase 3's graphed run; then a tracked
+    frame of each under torch.profiler, from runs of the frames before
+    it. On that frame the device's records of each hand-written kernel
+    must equal what the launch counters gained: for the graphed step,
+    whose counters add each replayed graph's kernel nodes, this measures
+    that a replay runs the kernels its counts claim."""
+    import numpy as np
+    import torch
+    from stereo_svo_tpu_torch.engine.runner import StereoSvo
+
+    eager, _, _, esvo = drive(cfg, lefts, rights, gt, counters,
+                              make_svo=EagerSvo)
+    g_traj, e_traj = svo3.trajectory(), esvo.trajectory()
+    g_m, e_m = svo3.metrics(), esvo.metrics()
+    first_diff = None
+    for i in range(lefts.shape[0]):
+        fields = [("T_wc", g_traj[i], e_traj[i])] + [
+            (k, g_m[k][i], e_m[k][i]) for k in g_m]
+        diff = [k for k, a, b in fields if not np.array_equal(a, b)]
+        if diff:
+            first_diff = {"frame": i, "fields": diff}
+            break
+    # tracked, non-keyframe frames from frame 6 on, two apart: each is
+    # profiled after its previous frame ran in the profiler's warm-up step;
+    # the profiler may drop a record, never add one (device_us), so the
+    # first of up to three frames whose records of every kernel equal the
+    # counters' gain is kept
+    kf = g_m["kf_inserted"]
+    frames = []
+    for i in range(6, len(kf)):
+        if not kf[i] and (not frames or i - frames[-1] >= 2):
+            frames.append(i)
+    frames = frames[:3]
+    profiled = {}
+    for key, make in (("graphed", StereoSvo), ("eager", EagerSvo)):
+        svo, done, tries = make(cfg, device="cuda"), 0, []
+        for t in frames:
+            for i in range(done, t - 1):
+                svo.new_image(lefts[i], rights[i])
+            torch.cuda.synchronize()
+
+            def frame(t=t, svo=svo):
+                zero_counters(counters)
+                svo.new_image(lefts[t], rights[t])
+            prof = prof_launches(frame, warmup=lambda t=t, svo=svo:
+                                 svo.new_image(lefts[t - 1], rights[t - 1]))
+            done = t + 1
+            prof.update(frame=t, counted=read_counters(
+                counters, f"on the {key} frame {t}"))
+            tries.append(prof)
+            if prof["by_kernel"] == prof["counted"]:
+                break
+        require(tries[-1]["by_kernel"] == tries[-1]["counted"],
+                f"{key} frames {frames}: the device's records of the "
+                f"kernels never equalled the counters' gain: "
+                f"{[(p['by_kernel'], p['counted']) for p in tries]}")
+        profiled[key] = dict(tries[-1], frames_tried=len(tries))
+    step = svo3._step
+    keys = ("frame_ms_median", "frame_ms_p90", "track_frame_ms_median",
+            "kf_frame_ms_median", "fps", "first_frame_ms", "launches",
+            "host_syncs_per_frame")
+    out = {"config": "SvoConfig()", "frames": int(lefts.shape[0]),
+           "bit_for_bit": first_diff is None, "first_difference": first_diff,
+           "graphed": {k: phase3[k] for k in keys},
+           "eager": {k: eager[k] for k in keys},
+           "profile": profiled,
+           "graph_nodes": step.nodes, "kernel_nodes": step.kernel_nodes,
+           "capture_seconds": step.capture_seconds,
+           "graph_pool_mb": step.pool_bytes / 2**20,
+           "device_busy_share_graphed_tracked_frame":
+               profiled["graphed"]["device_ms"]
+               / phase3["track_frame_ms_median"],
+           "device_busy_share_eager_tracked_frame":
+               profiled["eager"]["device_ms"]
+               / eager["track_frame_ms_median"]}
+    require(out["bit_for_bit"], f"graphed and eager runs differ first at "
+                                f"{first_diff}")
+    shares = [out[f"device_busy_share_{k}_tracked_frame"]
+              for k in ("graphed", "eager")]
+    require(all(0.0 < s <= 1.0 for s in shares),
+            f"device busy shares {shares}: not in (0, 1]")
     return out
 
 
@@ -1432,10 +1613,10 @@ def main() -> int:
     # one online-loop call (the last one's input) under torch.profiler:
     # CUDA launches and device ms; refine_trajectory's are profile_step.py's
     # "loop" line (a profile of its ~63,000 launches takes ~30 s)
-    launches, dev_ms = prof_stats(
+    prof = prof_launches(
         lambda: step_mod.run_online_loop(lcfg, calls[-1]["args"][1]))
-    phase7["loop_call"].update(profiled_launches=launches,
-                               profiled_device_ms=dev_ms)
+    phase7["loop_call"].update(profiled_launches=prof["kernels"],
+                               profiled_device_ms=prof["device_ms"])
     phase7.update(config="SvoConfig(online_loop_every=1, kf_dist_ratio=0.05"
                          ", loop_min_gap=15, loop_min_score=0.75)",
                   scene="planes", traj="loop", dt=LOOP_DT,
@@ -1537,6 +1718,11 @@ def main() -> int:
     require(phase9["rotated_variant_calls"] == len(BLACKOUT),
             f"{phase9['rotated_variant_calls']} calls of the rotated "
             f"relocalisation variants, want {len(BLACKOUT)}")
+    # recorded once into the A_fail graph (and run once in its warm-up)
+    require(phase9["rotated_variants_captured"] == 1
+            and phase9["rotated_variants_eager"] == 1,
+            "the rotated relocalisation variants are not in the A_fail "
+            "graph alone")
     del l_lefts, l_rights
 
     # ---- phase 10: the CLI, then checkpoint and resume ----
@@ -1552,6 +1738,13 @@ def main() -> int:
     phase11 = global_map_run(cfg, states8, counters)
     emit("phase11", phase11)
     detail["phase11"] = phase11
+
+    # ---- phase 12: the graphed step against the eager one ----
+    mark("phase12")
+    phase12 = graphed_vs_eager(cfg, lefts, rights, gt, counters, svo3,
+                               phase3)
+    emit("phase12", phase12)
+    detail["phase12"] = phase12
     mark("end")
     emit("seconds", seconds)
     detail["seconds"] = seconds
@@ -1583,12 +1776,21 @@ def main() -> int:
                "phase10_cli": phase10["cli"]["launches"],
                "phase10_checkpoint": phase10["checkpoint"]["launches"],
                "phase11": phase11["launches"]}
+    # measured: each graph's kernel nodes of this kernel (read from the
+    # libcuda), and on phase 12's profiled frame the device's records of it
+    # beside the counters' gain
     print(json.dumps({"kernels": [
         dict({k: r[k] for k in ("name", "route", "source", "replaces",
                                 "launches", "max_abs_err", "max_rel_err",
                                 "ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms", "device_us", "host_us")},
-             launches_by_path={p: v[r["name"]] for p, v in by_path.items()})
+             launches_by_path={p: v[r["name"]] for p, v in by_path.items()},
+             graph_kernel_nodes={g: v[r["name"]] for g, v in
+                                 phase12["kernel_nodes"].items()},
+             profiled_tracked_frame={
+                 k: {"device_records": v["by_kernel"][r["name"]],
+                     "counted": v["counted"][r["name"]]}
+                 for k, v in phase12["profile"].items()})
         for r in main_rows.values()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,17 @@ over the first 40 frames of chip_smoke.py's sequences (arc/planes at
           one keyframe frame (the second keyframe after the bootstrap) and
           one window-BA call (the first keyframe after the bootstrap).
 
+Passes 1 and 2 run the eager step (engine/step.make_step, through
+chip_smoke.EagerSvo). Then "graphed": the same frames through StereoSvo,
+which replays the step's CUDA graphs (engine/graphed.py): host-timed ms of
+the tracking and keyframe frames, and for the same tracking frame (the
+frame before it in the profiler's warm-up step) the host's kernel
+launches, graph launches and copies and the device ms under
+torch.profiler, with the graphs' nodes by kind, the capture seconds and
+graph pool MB. Every profiled frame or call gives chip_smoke.prof_launches'
+counts (host launches by kind, device ms, device records of each
+hand-written kernel).
+
 Then "loop": chip_smoke.py phase 7's run (online loop closure on the EuRoC
 rig, the loop sequence, drift injected at frame 30) and, on the input of
 its last online-loop call and on its final state, the CUDA launches,
@@ -46,7 +57,6 @@ def loop_profile(dev):
     whole and in parts (see the module docstring)."""
     import torch
     import chip_smoke
-    from chip_smoke import prof_stats
     from stereo_svo_tpu_torch.backend import loop_closure, pose_graph
     from stereo_svo_tpu_torch.config import SvoConfig
     from stereo_svo_tpu_torch.engine import step as step_mod
@@ -105,8 +115,7 @@ def loop_profile(dev):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
-        launches, dev_ms = prof_stats(fn)
-        return {"launches": launches, "device_ms": dev_ms, "wall_ms": wall}
+        return dict(chip_smoke.prof_launches(fn), wall_ms=wall)
 
     return {"online_loop_call": parts(
                 lambda: step_mod.run_online_loop(cfg, st)),
@@ -127,7 +136,6 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     import chip_smoke
-    from chip_smoke import prof_stats
     import stereo_svo_tpu_torch  # noqa: F401  (sets the TF32 flags)
     from stereo_svo_tpu_torch.config import (SvoConfig, kitti_config,
                                              stress_config)
@@ -162,7 +170,7 @@ def main() -> int:
             return st
         if ba["mode"] == "profile":
             box = []
-            ba["prof"].append(prof_stats(
+            ba["prof"].append(chip_smoke.prof_launches(
                 lambda: box.append(run_window_ba(cfg, st))))
             return box[0]
         return run_window_ba(cfg, st)
@@ -172,7 +180,7 @@ def main() -> int:
     try:
         for name, cfg, L, R in configs:     # pass 1: no profiler yet
             ba.update(mode="time", ms=[])
-            svo = runner.StereoSvo(cfg, device="cuda")
+            svo = chip_smoke.EagerSvo(cfg, device="cuda")
             ms = []
             for i in range(n):
                 torch.cuda.synchronize()
@@ -194,17 +202,48 @@ def main() -> int:
             kf_frame = kf_after[1] if len(kf_after) > 1 else None
             t_frame = next(i for i in range(5, n) if i not in r["kf_frames"])
             ba.update(prof=[])
-            svo = runner.StereoSvo(cfg, device="cuda")
+            svo = chip_smoke.EagerSvo(cfg, device="cuda")
             for i in range(n):
                 ba["mode"] = "profile" if i == ba_frame else "plain"
                 if i in (t_frame, kf_frame):
                     key = "track_frame" if i == t_frame else "kf_frame"
-                    r[key] = (i,) + prof_stats(
-                        lambda: svo.new_image(L[i], R[i]))
+                    r[key] = (i, chip_smoke.prof_launches(
+                        lambda: svo.new_image(L[i], R[i])))
                 else:
                     svo.new_image(L[i], R[i])
             r["ba_call"] = ba["prof"][0] if ba["prof"] else None
             print(name, json.dumps(r), flush=True)
+        ba["mode"] = "plain"
+        graphed = {}
+        for name, cfg, L, R in configs:     # the graphed step
+            t_frame = results[name]["track_frame"][0]
+            svo = runner.StereoSvo(cfg, device="cuda")
+            ms, g = [], {}
+            for i in range(n):
+                if i == t_frame - 1:        # the profile's warm-up step
+                    continue
+                if i == t_frame:
+                    g["track_frame"] = (i, chip_smoke.prof_launches(
+                        lambda: svo.new_image(L[i], R[i]),
+                        warmup=lambda: svo.new_image(L[i - 1], R[i - 1])))
+                    continue
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                svo.new_image(L[i], R[i])
+                torch.cuda.synchronize()
+                ms.append((i, (time.perf_counter() - t) * 1e3))
+            kf = svo.metrics()["kf_inserted"].tolist()
+            g.update(
+                track_ms_median=statistics.median(
+                    [m for i, m in ms if i > 0 and not kf[i]]),
+                kf_ms=[m for i, m in ms if i > 0 and kf[i]],
+                kf_frames=[i for i in range(n) if kf[i]],
+                graph_nodes=svo._step.nodes,
+                capture_seconds=svo._step.capture_seconds,
+                graph_pool_mb=svo._step.pool_bytes / 2**20)
+            graphed[name] = g
+        results["graphed"] = graphed
+        print("graphed", json.dumps(graphed), flush=True)
     finally:
         step_mod.run_window_ba = run_window_ba
     results["loop"] = loop_profile(dev)

@@ -1,0 +1,365 @@
+"""The graph-captured per-frame step — the counterpart of the reference's
+``make_jitted_step`` (``jax.jit(make_step(cfg), donate_argnums=(0,))``).
+
+JAX compiles the step once and donates the state's buffers, so a frame
+reuses them. Here the tracked frame's phases are captured once as CUDA
+graphs over static buffers, and a frame replays them:
+
+* ``P``: ``pyramid.build_with_gradients`` of the left image (kernels B1,
+  B2). Its captured outputs are the static pyramid, which both track
+  variants, the keyframe phase and ``B`` read, so it needs no copy;
+* ``A_ok`` / ``A_fail``: ``track_phase`` with ``prev_ok`` True / False
+  (False adds the rotated relocalisation variants), its state copied into
+  the static ``S'`` and its ``TrackCtx`` into a static one (B3, B4);
+* ``B``: ``post_phase`` on ``S'``, its state copied back into the live
+  state ``S`` (what donation is to JAX) and its ``FrameOut`` into a static
+  one (B3: the template rebuild).
+
+A tracked frame runs: replay ``P``; replay ``A_ok`` or ``A_fail`` (the
+host's copy of the previous frame's ``tracking_ok``); the step's one host
+sync (``step._read_decisions``); on a keyframe frame only, the eager
+``kf_phase`` (insertion, window BA, the online loop when due) with its
+state copied into ``S'``; replay ``B``. The bootstrap frame replays ``P``
+and runs ``boot`` eagerly, its state copied into ``S``.
+
+``S'`` has a buffer of its own for every field of the state: graph A
+copies the whole tracked state into it and graph B the whole new state
+back.
+
+The graphs are captured when the step is made, on one side stream after a
+warm-up of every body on that stream (which also allocates B4's scratch
+for it, ``align_kernel._scratch``), into one memory pool, in the order
+``P``, ``A_ok``, ``A_fail``, ``B``. The data that passes between graphs
+lives in buffers allocated outside the pool (``S``, ``S'``, the context,
+the output) or in the pyramid, which stays referenced; a graph's pool
+memory holds only its own temporaries, so the graphs may replay in any
+order, one at a time. Capture synchronises, so it happens here and never
+inside a frame.
+
+The host's launch counters (``pyramid_kernel.LAUNCHES``,
+``align_kernel.LAUNCHES``) do not move on a replay. After each capture the
+graph's kernel nodes are read back through libcuda by function name
+(:func:`scan`); they must equal the launches the wrappers counted while
+capturing (capture raises otherwise), and each replay adds them.
+
+On the CPU the same object runs the same bodies directly on the same
+static buffers, with no capture: the graph's plain version, on which the
+tests hold the copies to the eager ``step.make_step`` bit for bit. On
+CUDA there is no eager fallback: a capture or a replay that fails raises.
+
+The returned state is the live buffers and the returned ``FrameOut`` the
+static one: the next frame overwrites both, so a caller that keeps either
+across frames clones it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import re
+import time
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from ..config import SvoConfig
+from ..device import resolve
+from ..ops import pyramid
+from ..ops.kernels import align_kernel, pyramid_kernel
+from .state import FrameOut, SlamState, init_state
+from .step import HostFlags, _read_decisions, host_flags, make_phases
+
+COUNTERS = (pyramid_kernel.LAUNCHES, align_kernel.LAUNCHES)
+KERNELS = {**pyramid_kernel.KERNELS, **align_kernel.KERNELS}
+_COUNTER = {key: counts for counts in COUNTERS for key in counts}
+GRAPHS = ("P", "A_ok", "A_fail", "B")
+# CUgraphNodeType (cuda.h) of the node kinds a capture here records
+_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset"}
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2 (cuda.h)."""
+    _fields_ = [("func", ctypes.c_void_p), ("dims", ctypes.c_uint * 7),
+                ("kernel_params", ctypes.c_void_p),
+                ("extra", ctypes.c_void_p), ("kern", ctypes.c_void_p),
+                ("ctx", ctypes.c_void_p)]
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a NamedTuple tree (nested ones too), in field
+    order."""
+    out = []
+    for v in tree:
+        out.extend(_leaves(v) if isinstance(v, tuple) else [v])
+    return out
+
+
+def _tree(like, leaves):
+    """``like``'s structure over the tensors of the iterator ``leaves``."""
+    return type(like)(*(_tree(v, leaves) if isinstance(v, tuple)
+                        else next(leaves) for v in like))
+
+
+def _storage(t: torch.Tensor) -> int:
+    return t.untyped_storage().data_ptr() if t.numel() else 0
+
+
+def _copy_into(dst: List[torch.Tensor], src) -> None:
+    """Copy the leaves of ``src`` into the buffers ``dst``. A leaf that is
+    its buffer already is skipped; one that lies in any of the buffers (a
+    view, or another field's buffer) is cloned before the first copy, so
+    every leaf is read as it was. Shapes and dtypes must match: a buffer
+    never converts."""
+    buffers = {_storage(d) for d in dst} - {0}
+    pairs = []
+    for d, s in zip(dst, _leaves(src), strict=True):
+        if s is d:
+            continue
+        if s.shape != d.shape or s.dtype != d.dtype:
+            raise ValueError(f"static buffer {tuple(d.shape)} {d.dtype} "
+                             f"cannot take {tuple(s.shape)} {s.dtype}")
+        if s.device == d.device and _storage(s) in buffers:
+            s = s.clone()
+        pairs.append((d, s))
+    for d, s in pairs:
+        d.copy_(s)
+
+
+def _counts() -> Dict[str, int]:
+    """Every launch counter, by kernel."""
+    return {key: counts[key] for key, counts in _COUNTER.items()}
+
+
+def _set_counts(values: Dict[str, int]) -> None:
+    for key, v in values.items():
+        _COUNTER[key][key] = v
+
+
+def counter_of(function: str) -> Optional[str]:
+    """The launch counter of the kernel that the CUDA function name
+    ``function`` names — mangled, as libcuda gives it, or demangled, as
+    torch.profiler does — or None for any other function."""
+    for key, name in KERNELS.items():
+        if (f"{len(name)}{name}" in function if function.startswith("_Z")
+                else re.search(rf"(?<!\w){name}(?!\w)", function)):
+            return key
+    return None
+
+
+def scan(graph: torch.cuda.CUDAGraph
+         ) -> Tuple[Dict[str, int], Dict[str, int]]:
+    """(nodes by kind — "kernel", "memcpy", "memset", "other" — and kernel
+    nodes by launch counter) of a captured graph, read from the graph
+    through libcuda: each kernel node's function and that function's
+    name."""
+    drv = ctypes.CDLL("libcuda.so.1")
+    ptr = ctypes.c_void_p
+
+    def call(fn, *args):
+        err = getattr(drv, fn)(*args)
+        if err:
+            raise RuntimeError(f"{fn} failed: CUresult {err}")
+
+    raw, n = ptr(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    call("cuGraphGetNodes", raw, None, ctypes.byref(n))
+    nodes = (ptr * n.value)()
+    call("cuGraphGetNodes", raw, nodes, ctypes.byref(n))
+    kinds = dict.fromkeys(("kernel", "memcpy", "memset", "other"), 0)
+    kernels = dict.fromkeys(KERNELS, 0)
+    counter = {}                        # function handle -> counter key
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        call("cuGraphNodeGetType", ptr(node), ctypes.byref(t))
+        kind = _NODE_TYPES.get(t.value, "other")
+        kinds[kind] += 1
+        if kind != "kernel":
+            continue
+        p = _KernelNodeParams()
+        call("cuGraphKernelNodeGetParams_v2", ptr(node), ctypes.byref(p))
+        handle = ("func", p.func) if p.func else ("kern", p.kern)
+        if handle not in counter:
+            name = ctypes.c_char_p()
+            call("cuFuncGetName" if p.func else "cuKernelGetName",
+                 ctypes.byref(name), ptr(handle[1]))
+            counter[handle] = counter_of(name.value.decode())
+        if counter[handle] is not None:
+            kernels[counter[handle]] += 1
+    return kinds, kernels
+
+
+def capture(body: Callable[[], object], pool, stream: torch.cuda.Stream
+            ) -> Tuple[torch.cuda.CUDAGraph, object, Dict[str, int]]:
+    """Capture ``body()`` on ``stream`` into ``pool``: (the instantiated
+    graph, what the body returned — tensors that replays overwrite — and
+    the launches the wrappers counted during capture, which are taken
+    back from the counters). A body that synchronises, reads the device or
+    does anything else capture refuses raises here."""
+    before = _counts()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)  # for scan
+    try:
+        with torch.cuda.graph(graph, pool=pool, stream=stream):
+            out = body()
+    finally:
+        after = _counts()
+        _set_counts(before)
+    graph.instantiate()
+    return graph, out, {k: after[k] - before[k] for k in before}
+
+
+class GraphedStep:
+    """``step(state, img_l, img_r, flags=None) -> (state, FrameOut,
+    flags)``, ``make_step``'s signature, on static buffers (module
+    docstring). Images are (H,W) at the configuration's camera size."""
+
+    def __init__(self, cfg: SvoConfig, device="cuda"):
+        self.cfg = cfg
+        self.device = resolve(device)
+        self._boot, self._track, self._kf, self._post = make_phases(cfg)
+        self.state: SlamState = init_state(cfg, self.device)  # S, live
+        self._s = _leaves(self.state)
+        self._s1 = [torch.empty_like(x) for x in self._s]     # S', staged
+        self._ctx: Optional[List[torch.Tensor]] = None
+        self._ctx_like = None
+        self._out: Optional[FrameOut] = None
+        hw = (cfg.camera.height, cfg.camera.width)
+        self._img_l = torch.zeros(hw, dtype=torch.float32, device=self.device)
+        self._img_r = torch.zeros_like(self._img_l)
+        self._pyr = None
+        self.graphs: Dict[str, torch.cuda.CUDAGraph] = {}
+        self.replays = dict.fromkeys(GRAPHS, 0)  # (CPU: body runs)
+        self.nodes: Dict[str, Dict[str, int]] = {}         # scan(), by kind
+        self.kernel_nodes: Dict[str, Dict[str, int]] = {}  # by counter
+        self.capture_seconds = 0.0
+        self.pool_bytes = 0
+        if self.device.type == "cuda":
+            with torch.cuda.device(self.device):
+                self._capture_all()
+
+    # --- the bodies: a phase, then copies into the static buffers ---
+
+    def _body_p(self):
+        return pyramid.build_with_gradients(self._img_l, self.cfg.num_levels)
+
+    def _body_a(self, prev_ok: bool) -> None:
+        st, ctx = self._track(self.state, *self._pyr, self._img_r,
+                              prev_ok=prev_ok)
+        _copy_into(self._s1, st)
+        if self._ctx is None:
+            self._ctx_like = ctx
+            self._ctx = [torch.empty_like(x) for x in _leaves(ctx)]
+        _copy_into(self._ctx, ctx)
+
+    def _body_b(self) -> None:
+        st, out = self._post(self._staged(), *self._pyr, self.context)
+        _copy_into(self._s, st)
+        if self._out is None:
+            self._out = FrameOut(*(torch.empty_like(x) for x in out))
+        _copy_into(list(self._out), out)
+
+    def _staged(self) -> SlamState:
+        """S' as a SlamState."""
+        return _tree(self.state, iter(self._s1))
+
+    @property
+    def context(self):
+        """The static TrackCtx of the last track phase."""
+        return _tree(self._ctx_like, iter(self._ctx))
+
+    # --- capture and replay ---
+
+    def _capture_all(self) -> None:
+        t0 = time.perf_counter()
+        dev = self.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        saved = _counts()
+        with torch.cuda.stream(side):   # warm-up: lazy state, B4 scratch
+            self._pyr = self._body_p()
+            self._body_a(True)
+            self._body_a(False)
+            self._body_b()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        _set_counts(saved)              # the warm-up is set-up, not a frame
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_reserved(dev)
+        pool = torch.cuda.graph_pool_handle()
+        bodies = {"P": self._body_p, "A_ok": lambda: self._body_a(True),
+                  "A_fail": lambda: self._body_a(False), "B": self._body_b}
+        for name in GRAPHS:
+            graph, out, counted = capture(bodies[name], pool, side)
+            if name == "P":
+                self._pyr = out         # the static pyramid
+            self.nodes[name], self.kernel_nodes[name] = scan(graph)
+            if self.kernel_nodes[name] != counted:
+                raise RuntimeError(
+                    f"graph {name} holds the kernel nodes "
+                    f"{self.kernel_nodes[name]}, but its capture counted the "
+                    f"launches {counted}")
+            self.graphs[name] = graph
+        torch.cuda.synchronize(dev)
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - base
+        self.load(init_state(self.cfg, dev))   # the warm-up wrote into S
+        torch.cuda.synchronize(dev)
+        self.capture_seconds = time.perf_counter() - t0
+
+    def _run(self, name: str) -> None:
+        """Replay graph ``name`` (CPU: run its body) and count the
+        launches of its kernel nodes."""
+        self.replays[name] += 1
+        if self.device.type != "cuda":
+            if name == "P":
+                self._pyr = self._body_p()
+            elif name == "B":
+                self._body_b()
+            else:
+                self._body_a(name == "A_ok")
+            return
+        self.graphs[name].replay()
+        for key, n in self.kernel_nodes[name].items():
+            _COUNTER[key][key] += n
+
+    def load(self, state: SlamState) -> None:
+        """Copy ``state`` into the live buffers (fields that are those
+        buffers already are skipped)."""
+        _copy_into(self._s, state)
+
+    # --- the step ---
+
+    def __call__(self, state: SlamState, img_l: torch.Tensor,
+                 img_r: torch.Tensor, flags: Optional[HostFlags] = None
+                 ) -> Tuple[SlamState, FrameOut, HostFlags]:
+        if state is not self.state:
+            self.load(state)
+        if flags is None:
+            flags = host_flags(self.state)
+        for buf, img in ((self._img_l, img_l), (self._img_r, img_r)):
+            if tuple(img.shape) != tuple(buf.shape):
+                raise ValueError(f"image {tuple(img.shape)}: the step was "
+                                 f"made for {tuple(buf.shape)}")
+            buf.copy_(img)
+        self._run("P")
+        if not flags.booted:
+            st, out = self._boot(self.state, *self._pyr, self._img_r)
+            _copy_into(self._s, st)
+            return self.state, out, HostFlags(booted=True, tracking_ok=True)
+        self._run("A_ok" if flags.tracking_ok else "A_fail")
+        staged, ctx = self._staged(), self.context
+        (need_kf, ok, run_loop), = _read_decisions(self.cfg, [(staged, ctx)])
+        if need_kf:
+            _copy_into(self._s1, self._kf(staged, *self._pyr, self._img_r,
+                                          ctx.T_cw, run_loop))
+        self._run("B")
+        return self.state, self._out, HostFlags(booted=True, tracking_ok=ok)
+
+
+def make_graphed_step(cfg: SvoConfig, device="cuda") -> GraphedStep:
+    """The per-frame step on static buffers, captured as CUDA graphs on a
+    CUDA device (run directly on the CPU):
+    ``step(state, img_l, img_r, flags=None) -> (state, FrameOut, flags)``.
+    The returned state is ``step.state``, the live buffers; a ``state``
+    argument that is not those is copied into them first."""
+    return GraphedStep(cfg, device)
+
+
+__all__ = ["make_graphed_step", "GraphedStep", "capture", "scan",
+           "counter_of", "GRAPHS", "KERNELS"]

@@ -3,9 +3,12 @@
 ``run_sequence_scan`` (the reference's ``lax.scan`` runner, the one
 ``bench.py`` drives) and ``run_sequence_batched`` (B sequences per step).
 
-Poses and metrics stay on the device until read, so a frame costs the
-step's single host sync and nothing more (one per batched frame for the
-batched runner).
+``StereoSvo``, ``run_sequence`` and ``run_sequence_scan`` run the
+graph-captured step (``graphed.make_graphed_step``), as the reference's
+runners run the jitted, state-donating one; ``run_sequence_batched`` runs
+the eager batched step. Poses and metrics stay on the device until read,
+so a frame costs the step's single host sync and nothing more (one per
+batched frame for the batched runner).
 """
 
 from __future__ import annotations
@@ -17,42 +20,57 @@ import torch
 
 from ..config import SvoConfig
 from ..device import resolve
+from .graphed import make_graphed_step
 from .state import FrameOut, SlamState, init_state
-from .step import HostFlags, host_flags, make_batched_step, make_step
+from .step import HostFlags, host_flags, make_batched_step
 
 
 class StereoSvo:
     """Construct with settings and a device, feed stereo pairs, read
     poses/trajectory. Runs on the card unless ``device="cpu"``; raises
-    RuntimeError where CUDA is missing."""
+    RuntimeError where CUDA is missing. The step's graphs are captured
+    here, once (``graphed.make_graphed_step``)."""
 
     def __init__(self, cfg: SvoConfig, device="cuda"):
         device = resolve(device)
         self.cfg = cfg
         self.device = device
-        self._step = make_step(cfg)
-        self.state: SlamState = init_state(cfg, device)
+        self._step = make_graphed_step(cfg, device)
         self._flags = HostFlags(booted=False, tracking_ok=True)
         self._trajectory: List[torch.Tensor] = []
         self._metrics: List[FrameOut] = []
 
+    @property
+    def state(self) -> SlamState:
+        """The live state: the step's own buffers, which the next frame
+        overwrites (as donation does in JAX) — clone what is kept across
+        frames. Assigning copies into them; set a restored state with
+        :meth:`resume`, which also re-reads the host's flags."""
+        return self._step.state
+
+    @state.setter
+    def state(self, state: SlamState) -> None:
+        self._step.load(state)
+
     def new_image(self, left, right) -> FrameOut:
-        """Process one stereo pair ((H,W) arrays or tensors in [0, 255])."""
-        left = torch.as_tensor(left, dtype=torch.float32,
-                               device=self.device).contiguous()
+        """Process one stereo pair ((H,W) arrays or tensors in [0, 255]).
+        The FrameOut returned is the engine's own copy."""
+        left = torch.as_tensor(left, dtype=torch.float32, device=self.device)
         right = torch.as_tensor(right, dtype=torch.float32,
-                                device=self.device).contiguous()
-        self.state, out, self._flags = self._step(self.state, left, right,
-                                                  self._flags)
+                                device=self.device)
+        _, out, self._flags = self._step(self._step.state, left, right,
+                                         self._flags)
+        out = FrameOut(*(x.clone() for x in out))
         self._trajectory.append(out.T_wc)
         self._metrics.append(out)
         return out
 
     def resume(self, state: SlamState) -> None:
         """Continue from ``state`` (a checkpoint loaded onto this engine's
-        device): the host's flags are read from it, one host sync."""
-        self.state = state
-        self._flags = host_flags(state)
+        device), copied into the live buffers: the host's flags are read
+        from it, one host sync."""
+        self._step.load(state)
+        self._flags = host_flags(self._step.state)
 
     @property
     def tracking_ok(self) -> bool:
@@ -99,16 +117,17 @@ def _stack(items):
 def run_sequence_scan(cfg: SvoConfig, lefts, rights, device="cuda"
                       ) -> Tuple[SlamState, FrameOut]:
     """Whole-sequence processing: lefts/rights (T,H,W) in, (final state,
-    FrameOut stacked over T) out, everything on the device."""
+    FrameOut stacked over T) out, everything on the device, through the
+    graph-captured step."""
     device = resolve(device)
     lefts, rights = _images(lefts, device), _images(rights, device)
-    step = make_step(cfg)
-    state = init_state(cfg, device)
+    step = make_graphed_step(cfg, device)
+    state = step.state
     flags = HostFlags(booted=False, tracking_ok=True)
     outs = []
     for t in range(lefts.shape[0]):
         state, out, flags = step(state, lefts[t], rights[t], flags)
-        outs.append(out)
+        outs.append(FrameOut(*(x.clone() for x in out)))
     return state, _stack(outs)
 
 

@@ -3,7 +3,9 @@ multi-rank dry run — the port's counterpart of the repository's
 ``__graft_entry__.py``.
 
 ``entry()`` returns the flagship per-frame step (the SVO state machine at
-the full EuRoC geometry) with example arguments on the chosen device.
+the full EuRoC geometry) with example arguments on the chosen device: the
+graph-captured step (``engine/graphed.py``), as the reference returns a
+jitted function.
 
 ``dryrun_multichip(n)`` starts n CPU ranks of this machine in one ``gloo``
 group and runs, on tiny shapes, ONE bootstrap step of the multi-sequence
@@ -35,14 +37,16 @@ def _tiny_cfg(width=128, height=96) -> SvoConfig:
 
 def entry(device="cuda"):
     """(step, example_args): the single-device per-frame step for
-    ``SvoConfig()`` (752×480) and ``(state, left, right, flags)`` for its
-    first call, the frames seeded random noise."""
+    ``SvoConfig()`` (752×480), its graphs captured on a CUDA device, and
+    ``(state, left, right, flags)`` for its first call, the frames seeded
+    random noise."""
+    from .engine.graphed import make_graphed_step
     from .engine.state import init_state
-    from .engine.step import HostFlags, make_step
+    from .engine.step import HostFlags
 
     device = resolve(device)
     cfg = SvoConfig()  # full EuRoC-geometry flagship config (752x480)
-    fn = make_step(cfg)
+    fn = make_graphed_step(cfg, device)
     state = init_state(cfg, device)
     h, w = cfg.camera.height, cfg.camera.width
     rng = np.random.default_rng(0)

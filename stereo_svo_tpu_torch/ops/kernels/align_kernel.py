@@ -39,6 +39,9 @@ from .. import interp
 from . import _build
 
 LAUNCHES = {"sample_patches": 0, "gn_accumulate": 0}
+# the CUDA function each counter's launches run (csrc/align.cu)
+KERNELS = {"sample_patches": "sample_patch_kernel",
+           "gn_accumulate": "gn_accumulate_kernel"}
 MAX_IMAGES = 3   # images one B3 launch samples (csrc/align.cu kMaxImages)
 
 _SCRATCH = {}    # (device index, stream) -> (partials, counter) of B4

@@ -98,6 +98,16 @@ loaded = [m for m, mod in list(sys.modules.items())
           if os.path.abspath(getattr(mod, "__file__", None) or "")
           .startswith(ref)]
 assert not loaded, loaded
+# the graph-captured step is among them, and runs its plain version here
+assert "stereo_svo_tpu_torch.engine.graphed" in sys.modules
+import torch
+from stereo_svo_tpu_torch import entry
+from stereo_svo_tpu_torch.engine import graphed, state as state_mod
+cfg = entry._tiny_cfg()
+step = graphed.make_graphed_step(cfg, "cpu")
+img = torch.zeros(cfg.camera.height, cfg.camera.width)
+st, out, flags = step(state_mod.init_state(cfg, "cpu"), img, img)
+assert st is step.state and flags.booted and int(st.frame_idx) == 1
 
 import tempfile
 import numpy as np
