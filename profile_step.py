@@ -19,17 +19,23 @@ over the first 40 frames of chip_smoke.py's sequences (arc/planes at
 
 Passes 1 and 2 run the eager step (engine/step.make_step, through
 chip_smoke.EagerSvo). Then "graphed": the same frames through StereoSvo,
-which replays the step's CUDA graphs (engine/graphed.py): host-timed ms of
-the tracking and keyframe frames, and for the same tracking frame (the
-frame before it in the profiler's warm-up step) the host's kernel
-launches, graph launches and copies and the device ms under
-torch.profiler, with the graphs' nodes by kind, the capture seconds and
-graph pool MB. Every profiled frame or call gives chip_smoke.prof_launches'
-counts (host launches by kind, device ms, device records of each
-hand-written kernel).
+which replays the step's CUDA graphs (engine/graphed.py) on every frame
+after the bootstrap: host-timed ms of the tracking and keyframe frames,
+and for the same tracking frame and keyframe frame (each with the frame
+before it in the profiler's warm-up step) the host's kernel launches,
+graph launches and copies and the device ms under torch.profiler, with
+the graphs' nodes by kind, the capture seconds and graph pool MB; and
+"batched8": chip_smoke.py phase 8's eight sequences through the graphed
+batched step (graphed.make_graphed_batched_step), host-timed batched
+frames (synchronised around each), the aggregate frames/s of their
+median, one batched frame under torch.profiler (the frame before it in
+the warm-up step), the capture seconds and graph pool MB. Every profiled
+frame or call gives chip_smoke.prof_launches' counts (host launches by
+kind, device ms, device records of each hand-written kernel).
 
 Then "loop": chip_smoke.py phase 7's run (online loop closure on the EuRoC
-rig, the loop sequence, drift injected at frame 30) and, on the input of
+rig, the loop sequence, drift injected at frame 30) through the eager
+step, so that each online-loop call is a Python call, and, on the input of
 its last online-loop call and on its final state, the CUDA launches,
 device ms and synchronised wall ms of one online-loop call and one
 refine_trajectory call, and of their parts: the edge measurement
@@ -78,7 +84,8 @@ def loop_profile(dev):
     with chip_smoke.watch_calls(step_mod, "run_online_loop",
                                 counters) as calls:
         _, _, _, svo = chip_smoke.drive(cfg, lefts, rights, gt, counters,
-                                        before_frame=inject)
+                                        before_frame=inject,
+                                        make_svo=chip_smoke.EagerSvo)
     st = calls[-1]["args"][1]
     traj = svo.trajectory()
 
@@ -123,6 +130,52 @@ def loop_profile(dev):
                 lambda: loop_closure.refine_trajectory(cfg, svo.state,
                                                        traj)),
             "loop_calls": len(calls)}
+
+
+def batched_profile(dev):
+    """The "batched8" entry of the "graphed" line (see the module
+    docstring)."""
+    import torch
+    import chip_smoke
+    from stereo_svo_tpu_torch.config import SvoConfig
+    from stereo_svo_tpu_torch.engine import graphed
+    from stereo_svo_tpu_torch.engine.step import HostFlags
+    from stereo_svo_tpu_torch.io import synthetic
+
+    cfg, B, T = SvoConfig(), chip_smoke.BATCH, chip_smoke.BATCH_FRAMES
+    seqs = [synthetic.make_sequence(cfg.camera, T, chip_smoke.DT, kind="arc",
+                                    seed=b, device=dev) for b in range(B)]
+    lefts = torch.stack([q[0] for q in seqs])
+    rights = torch.stack([q[1] for q in seqs])
+    bstep = graphed.make_graphed_batched_step(cfg, B, dev)
+    flags = [HostFlags(booted=False, tracking_ok=True)] * B
+    box = {"flags": flags}
+
+    def frame(t):
+        box["flags"] = bstep(bstep.states, lefts[:, t], rights[:, t],
+                             box["flags"])[2]
+
+    t_prof = T // 2
+    ms, out = [], {}
+    for t in range(T):
+        if t == t_prof - 1:
+            continue                        # the profile's warm-up step
+        if t == t_prof:
+            out["batched_frame"] = (t, chip_smoke.prof_launches(
+                lambda: frame(t), warmup=lambda: frame(t - 1)))
+            continue
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame(t)
+        torch.cuda.synchronize()
+        ms.append((t, (time.perf_counter() - t0) * 1e3))
+    steady = [m for t, m in ms if t > 0]
+    out.update(batch=B, frames=T, batched_frame_ms=steady,
+               batched_frame_ms_median=statistics.median(steady),
+               fps_aggregate_of_median=B * 1e3 / statistics.median(steady),
+               replays=bstep.replays, capture_seconds=bstep.capture_seconds,
+               graph_pool_mb=bstep.pool_bytes / 2**20)
+    return out
 
 
 def main() -> int:
@@ -216,16 +269,20 @@ def main() -> int:
         ba["mode"] = "plain"
         graphed = {}
         for name, cfg, L, R in configs:     # the graphed step
-            t_frame = results[name]["track_frame"][0]
+            r = results[name]
+            prof_frames = {r["track_frame"][0]: "track_frame"}
+            if r.get("kf_frame"):
+                prof_frames[r["kf_frame"][0]] = "kf_frame"
             svo = runner.StereoSvo(cfg, device="cuda")
             ms, g = [], {}
             for i in range(n):
-                if i == t_frame - 1:        # the profile's warm-up step
-                    continue
-                if i == t_frame:
-                    g["track_frame"] = (i, chip_smoke.prof_launches(
-                        lambda: svo.new_image(L[i], R[i]),
-                        warmup=lambda: svo.new_image(L[i - 1], R[i - 1])))
+                if i + 1 in prof_frames and i not in prof_frames:
+                    continue                # the profile's warm-up step
+                if i in prof_frames:
+                    warm = ((lambda i=i: svo.new_image(L[i - 1], R[i - 1]))
+                            if i - 1 not in prof_frames else None)
+                    g[prof_frames[i]] = (i, chip_smoke.prof_launches(
+                        lambda i=i: svo.new_image(L[i], R[i]), warmup=warm))
                     continue
                 torch.cuda.synchronize()
                 t = time.perf_counter()
@@ -242,6 +299,7 @@ def main() -> int:
                 capture_seconds=svo._step.capture_seconds,
                 graph_pool_mb=svo._step.pool_bytes / 2**20)
             graphed[name] = g
+        graphed["batched8"] = batched_profile(dev)
         results["graphed"] = graphed
         print("graphed", json.dumps(graphed), flush=True)
     finally:

@@ -1,9 +1,10 @@
 """The graph-captured per-frame step — the counterpart of the reference's
-``make_jitted_step`` (``jax.jit(make_step(cfg), donate_argnums=(0,))``).
+``make_jitted_step`` (``jax.jit(make_step(cfg), donate_argnums=(0,))``) —
+and its batched form, the counterpart of the jitted ``make_batched_step``.
 
 JAX compiles the step once and donates the state's buffers, so a frame
-reuses them. Here the tracked frame's phases are captured once as CUDA
-graphs over static buffers, and a frame replays them:
+reuses them. Here every phase of a frame after the bootstrap is captured
+once as a CUDA graph over static buffers, and a frame replays them:
 
 * ``P``: ``pyramid.build_with_gradients`` of the left image (kernels B1,
   B2). Its captured outputs are the static pyramid, which both track
@@ -11,30 +12,40 @@ graphs over static buffers, and a frame replays them:
 * ``A_ok`` / ``A_fail``: ``track_phase`` with ``prev_ok`` True / False
   (False adds the rotated relocalisation variants), its state copied into
   the static ``S'`` and its ``TrackCtx`` into a static one (B3, B4);
+* ``K`` / ``K_loop``: ``kf_phase`` on ``S'`` — ``keyframe.insert`` (B3 in
+  the stereo match) and, with ``use_ba``, window BA; ``K_loop`` adds the
+  online loop closure (B2, B3, B4 at the thumbnail, the pose graph) and is
+  captured only when ``online_loop_every > 0`` — its state copied back
+  into ``S'``;
 * ``B``: ``post_phase`` on ``S'``, its state copied back into the live
   state ``S`` (what donation is to JAX) and its ``FrameOut`` into a static
   one (B3: the template rebuild).
 
 A tracked frame runs: replay ``P``; replay ``A_ok`` or ``A_fail`` (the
 host's copy of the previous frame's ``tracking_ok``); the step's one host
-sync (``step._read_decisions``); on a keyframe frame only, the eager
-``kf_phase`` (insertion, window BA, the online loop when due) with its
-state copied into ``S'``; replay ``B``. The bootstrap frame replays ``P``
-and runs ``boot`` eagerly, its state copied into ``S``.
+sync (``step._read_decisions``); on a keyframe frame, replay ``K``, or
+``K_loop`` when the sync says the online loop is due; replay ``B``. The
+bootstrap frame, once a sequence, replays ``P`` and runs ``boot``
+eagerly, its state copied into ``S``.
 
 ``S'`` has a buffer of its own for every field of the state: graph A
-copies the whole tracked state into it and graph B the whole new state
-back.
+copies the whole tracked state into it, graph K reads and rewrites it,
+and graph B copies the whole new state back.
 
 The graphs are captured when the step is made, on one side stream after a
 warm-up of every body on that stream (which also allocates B4's scratch
-for it, ``align_kernel._scratch``), into one memory pool, in the order
-``P``, ``A_ok``, ``A_fail``, ``B``. The data that passes between graphs
-lives in buffers allocated outside the pool (``S``, ``S'``, the context,
-the output) or in the pyramid, which stays referenced; a graph's pool
-memory holds only its own temporaries, so the graphs may replay in any
-order, one at a time. Capture synchronises, so it happens here and never
-inside a frame.
+for it, ``align_kernel._scratch``, and pays the first ``jacfwd``'s
+set-up), into one memory pool, in the order ``P``, ``A_ok``, ``A_fail``,
+``K``, ``K_loop``, ``B``. The data that passes between graphs lives in
+buffers allocated outside the pool (``S``, ``S'``, the context, the
+output) or in the pyramid, which stays referenced; a graph's pool memory
+holds only its own temporaries (window BA's reduced system among them),
+so the graphs may replay in any order, one at a time. The batched step's
+B steps capture into one pool on one side stream the same way, graph by
+graph with every step's ``P`` first: a pyramid captured after another
+step's ``A`` could lie in that graph's temporaries, which its replays
+overwrite. Capture synchronises, so it happens here and never inside a
+frame.
 
 The host's launch counters (``pyramid_kernel.LAUNCHES``,
 ``align_kernel.LAUNCHES``) do not move on a replay. After each capture the
@@ -42,10 +53,11 @@ graph's kernel nodes are read back through libcuda by function name
 (:func:`scan`); they must equal the launches the wrappers counted while
 capturing (capture raises otherwise), and each replay adds them.
 
-On the CPU the same object runs the same bodies directly on the same
-static buffers, with no capture: the graph's plain version, on which the
-tests hold the copies to the eager ``step.make_step`` bit for bit. On
-CUDA there is no eager fallback: a capture or a replay that fails raises.
+On the CPU the same objects run the same bodies directly on the same
+static buffers, with no capture: the graphs' plain version, on which the
+tests hold the copies to the eager ``step.make_step`` and
+``step.make_batched_step`` bit for bit. On CUDA there is no eager
+fallback: a capture or a replay that fails raises.
 
 The returned state is the live buffers and the returned ``FrameOut`` the
 static one: the next frame overwrites both, so a caller that keeps either
@@ -55,6 +67,7 @@ across frames clones it.
 from __future__ import annotations
 
 import ctypes
+import gc
 import re
 import time
 from typing import Callable, Dict, List, Optional, Tuple
@@ -71,9 +84,11 @@ from .step import HostFlags, _read_decisions, host_flags, make_phases
 COUNTERS = (pyramid_kernel.LAUNCHES, align_kernel.LAUNCHES)
 KERNELS = {**pyramid_kernel.KERNELS, **align_kernel.KERNELS}
 _COUNTER = {key: counts for counts in COUNTERS for key in counts}
-GRAPHS = ("P", "A_ok", "A_fail", "B")
-# CUgraphNodeType (cuda.h) of the node kinds a capture here records
-_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset"}
+GRAPHS = ("P", "A_ok", "A_fail", "K", "K_loop", "B")
+# CUgraphNodeType (cuda.h) of the node kinds a capture may record
+_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
+               4: "graph", 5: "empty", 6: "wait_event", 7: "event_record",
+               10: "mem_alloc", 11: "mem_free", 13: "conditional"}
 
 
 class _KernelNodeParams(ctypes.Structure):
@@ -147,10 +162,10 @@ def counter_of(function: str) -> Optional[str]:
 
 def scan(graph: torch.cuda.CUDAGraph
          ) -> Tuple[Dict[str, int], Dict[str, int]]:
-    """(nodes by kind — "kernel", "memcpy", "memset", "other" — and kernel
-    nodes by launch counter) of a captured graph, read from the graph
-    through libcuda: each kernel node's function and that function's
-    name."""
+    """(nodes by kind — "kernel", "memcpy", "memset", "other" and any
+    other kind of ``_NODE_TYPES`` the graph holds — and kernel nodes by
+    launch counter) of a captured graph, read from the graph through
+    libcuda: each kernel node's function and that function's name."""
     drv = ctypes.CDLL("libcuda.so.1")
     ptr = ctypes.c_void_p
 
@@ -170,7 +185,7 @@ def scan(graph: torch.cuda.CUDAGraph
         t = ctypes.c_int(-1)
         call("cuGraphNodeGetType", ptr(node), ctypes.byref(t))
         kind = _NODE_TYPES.get(t.value, "other")
-        kinds[kind] += 1
+        kinds[kind] = kinds.get(kind, 0) + 1
         if kind != "kernel":
             continue
         p = _KernelNodeParams()
@@ -205,12 +220,75 @@ def capture(body: Callable[[], object], pool, stream: torch.cuda.Stream
     return graph, out, {k: after[k] - before[k] for k in before}
 
 
+def _capture_graphs(steps: List["GraphedStep"]) -> Tuple[float, int]:
+    """Capture every graph of ``steps`` (one device) into one pool on one
+    side stream: first a warm-up of every body on that stream (lazy state,
+    B4's scratch for the stream, cuSOLVER's and cuBLAS's handles, the
+    first ``jacfwd``'s set-up), then the captures, each graph's kernel
+    nodes held to what its capture counted. Capture synchronises, so it
+    happens here and never inside a frame. The warm-up writes into the
+    live state, which is reset to the initial state at the end. Returns
+    (seconds, bytes the pool holds)."""
+    t0 = time.perf_counter()
+    dev = steps[0].device
+    with torch.cuda.device(dev):
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        saved = _counts()
+        with torch.cuda.stream(side):
+            for step in steps:
+                for name in step.graph_names:
+                    step._body(name)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        _set_counts(saved)          # the warm-up is set-up, not a frame
+        # a CUDA graph destroyed during a capture invalidates it: free the
+        # dead ones now and keep the cyclic collector out of the captures
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_reserved(dev)
+            pool = torch.cuda.graph_pool_handle()
+            # graph by graph, every step's P first: the pyramid outlives
+            # its capture, and in memory that a graph captured before it
+            # used for temporaries, that graph's replays would overwrite it
+            for step, name in ((step, name) for name in GRAPHS
+                               for step in steps
+                               if name in step.graph_names):
+                graph, _, counted = capture(
+                    lambda: step._body(name), pool, side)
+                step.nodes[name], step.kernel_nodes[name] = scan(graph)
+                if step.kernel_nodes[name] != counted:
+                    raise RuntimeError(
+                        f"graph {name} holds the kernel nodes "
+                        f"{step.kernel_nodes[name]}, but its capture "
+                        f"counted the launches {counted}")
+                step.graphs[name] = graph
+        finally:
+            if collecting:
+                gc.enable()
+        torch.cuda.synchronize(dev)
+        pool_bytes = torch.cuda.memory_reserved(dev) - base
+        for step in steps:
+            step.load(init_state(step.cfg, dev))
+        torch.cuda.synchronize(dev)
+    return time.perf_counter() - t0, pool_bytes
+
+
 class GraphedStep:
     """``step(state, img_l, img_r, flags=None) -> (state, FrameOut,
     flags)``, ``make_step``'s signature, on static buffers (module
-    docstring). Images are (H,W) at the configuration's camera size."""
+    docstring). Images are (H,W) at the configuration's camera size.
 
-    def __init__(self, cfg: SvoConfig, device="cuda"):
+    A frame is :meth:`track`, the host's read of its decisions
+    (``step._read_decisions`` of :attr:`tracked`), then :meth:`finish`;
+    ``__call__`` runs the three. ``capture=False`` leaves the capture of a
+    CUDA step's graphs to the caller (:class:`GraphedBatchedStep`
+    captures its steps together)."""
+
+    def __init__(self, cfg: SvoConfig, device="cuda", capture: bool = True):
         self.cfg = cfg
         self.device = resolve(device)
         self._boot, self._track, self._kf, self._post = make_phases(cfg)
@@ -224,20 +302,39 @@ class GraphedStep:
         self._img_l = torch.zeros(hw, dtype=torch.float32, device=self.device)
         self._img_r = torch.zeros_like(self._img_l)
         self._pyr = None
+        # the graphs this configuration runs, in capture order (each body
+        # reads what the ones before it made)
+        self.graph_names = tuple(g for g in GRAPHS if g != "K_loop"
+                                 or cfg.online_loop_every > 0)
         self.graphs: Dict[str, torch.cuda.CUDAGraph] = {}
         self.replays = dict.fromkeys(GRAPHS, 0)  # (CPU: body runs)
         self.nodes: Dict[str, Dict[str, int]] = {}         # scan(), by kind
         self.kernel_nodes: Dict[str, Dict[str, int]] = {}  # by counter
         self.capture_seconds = 0.0
         self.pool_bytes = 0
-        if self.device.type == "cuda":
-            with torch.cuda.device(self.device):
-                self._capture_all()
+        if self.device.type == "cuda" and capture:
+            self.capture_seconds, self.pool_bytes = _capture_graphs([self])
 
     # --- the bodies: a phase, then copies into the static buffers ---
 
-    def _body_p(self):
-        return pyramid.build_with_gradients(self._img_l, self.cfg.num_levels)
+    def _body(self, name: str) -> None:
+        """Run graph ``name``'s body. (Dispatched by name: bodies bound to
+        the step and kept on it would make a reference cycle, and a step
+        freed by the cyclic collector during another step's capture would
+        destroy its graphs there, which invalidates that capture.)"""
+        if name == "P":
+            self._body_p()
+        elif name in ("A_ok", "A_fail"):
+            self._body_a(name == "A_ok")
+        elif name in ("K", "K_loop"):
+            self._body_k(name == "K_loop")
+        else:
+            self._body_b()
+
+    def _body_p(self) -> None:
+        # captured, its outputs are the static pyramid
+        self._pyr = pyramid.build_with_gradients(self._img_l,
+                                                 self.cfg.num_levels)
 
     def _body_a(self, prev_ok: bool) -> None:
         st, ctx = self._track(self.state, *self._pyr, self._img_r,
@@ -247,6 +344,12 @@ class GraphedStep:
             self._ctx_like = ctx
             self._ctx = [torch.empty_like(x) for x in _leaves(ctx)]
         _copy_into(self._ctx, ctx)
+
+    def _body_k(self, run_loop: bool) -> None:
+        # reads S' and writes it: _copy_into clones what lies in it
+        _copy_into(self._s1, self._kf(self._staged(), *self._pyr,
+                                      self._img_r, self.context.T_cw,
+                                      run_loop))
 
     def _body_b(self) -> None:
         st, out = self._post(self._staged(), *self._pyr, self.context)
@@ -264,55 +367,20 @@ class GraphedStep:
         """The static TrackCtx of the last track phase."""
         return _tree(self._ctx_like, iter(self._ctx))
 
-    # --- capture and replay ---
+    @property
+    def tracked(self):
+        """(S', TrackCtx) of the last track phase: what
+        ``step._read_decisions`` reads."""
+        return self._staged(), self.context
 
-    def _capture_all(self) -> None:
-        t0 = time.perf_counter()
-        dev = self.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        saved = _counts()
-        with torch.cuda.stream(side):   # warm-up: lazy state, B4 scratch
-            self._pyr = self._body_p()
-            self._body_a(True)
-            self._body_a(False)
-            self._body_b()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
-        _set_counts(saved)              # the warm-up is set-up, not a frame
-        torch.cuda.empty_cache()
-        base = torch.cuda.memory_reserved(dev)
-        pool = torch.cuda.graph_pool_handle()
-        bodies = {"P": self._body_p, "A_ok": lambda: self._body_a(True),
-                  "A_fail": lambda: self._body_a(False), "B": self._body_b}
-        for name in GRAPHS:
-            graph, out, counted = capture(bodies[name], pool, side)
-            if name == "P":
-                self._pyr = out         # the static pyramid
-            self.nodes[name], self.kernel_nodes[name] = scan(graph)
-            if self.kernel_nodes[name] != counted:
-                raise RuntimeError(
-                    f"graph {name} holds the kernel nodes "
-                    f"{self.kernel_nodes[name]}, but its capture counted the "
-                    f"launches {counted}")
-            self.graphs[name] = graph
-        torch.cuda.synchronize(dev)
-        self.pool_bytes = torch.cuda.memory_reserved(dev) - base
-        self.load(init_state(self.cfg, dev))   # the warm-up wrote into S
-        torch.cuda.synchronize(dev)
-        self.capture_seconds = time.perf_counter() - t0
+    # --- replay ---
 
     def _run(self, name: str) -> None:
         """Replay graph ``name`` (CPU: run its body) and count the
         launches of its kernel nodes."""
         self.replays[name] += 1
         if self.device.type != "cuda":
-            if name == "P":
-                self._pyr = self._body_p()
-            elif name == "B":
-                self._body_b()
-            else:
-                self._body_a(name == "A_ok")
+            self._body(name)
             return
         self.graphs[name].replay()
         for key, n in self.kernel_nodes[name].items():
@@ -325,9 +393,13 @@ class GraphedStep:
 
     # --- the step ---
 
-    def __call__(self, state: SlamState, img_l: torch.Tensor,
-                 img_r: torch.Tensor, flags: Optional[HostFlags] = None
-                 ) -> Tuple[SlamState, FrameOut, HostFlags]:
+    def track(self, state: SlamState, img_l: torch.Tensor,
+              img_r: torch.Tensor, flags: Optional[HostFlags] = None
+              ) -> HostFlags:
+        """The frame's first half: ``state`` copied into the live buffers
+        (unless it is those), the images into the static ones, then ``P``
+        and, on a booted state, ``A_ok`` or ``A_fail``. Returns the flags
+        :meth:`finish` takes."""
         if state is not self.state:
             self.load(state)
         if flags is None:
@@ -338,18 +410,90 @@ class GraphedStep:
                                  f"made for {tuple(buf.shape)}")
             buf.copy_(img)
         self._run("P")
+        if flags.booted:
+            self._run("A_ok" if flags.tracking_ok else "A_fail")
+        return flags
+
+    def finish(self, flags: HostFlags,
+               decision: Optional[Tuple[bool, bool, bool]] = None
+               ) -> Tuple[SlamState, FrameOut, HostFlags]:
+        """The frame's second half. Booted: ``decision`` is (need_kf, ok,
+        run the online loop), the host's read of :attr:`tracked`; ``K`` or
+        ``K_loop`` when a keyframe is due, then ``B``. Not booted: the
+        eager bootstrap, its state copied into the live buffers."""
         if not flags.booted:
             st, out = self._boot(self.state, *self._pyr, self._img_r)
             _copy_into(self._s, st)
             return self.state, out, HostFlags(booted=True, tracking_ok=True)
-        self._run("A_ok" if flags.tracking_ok else "A_fail")
-        staged, ctx = self._staged(), self.context
-        (need_kf, ok, run_loop), = _read_decisions(self.cfg, [(staged, ctx)])
+        need_kf, ok, run_loop = decision
         if need_kf:
-            _copy_into(self._s1, self._kf(staged, *self._pyr, self._img_r,
-                                          ctx.T_cw, run_loop))
+            self._run("K_loop" if run_loop else "K")
         self._run("B")
         return self.state, self._out, HostFlags(booted=True, tracking_ok=ok)
+
+    def __call__(self, state: SlamState, img_l: torch.Tensor,
+                 img_r: torch.Tensor, flags: Optional[HostFlags] = None
+                 ) -> Tuple[SlamState, FrameOut, HostFlags]:
+        flags = self.track(state, img_l, img_r, flags)
+        decision = (_read_decisions(self.cfg, [self.tracked])[0]
+                    if flags.booted else None)
+        return self.finish(flags, decision)
+
+
+class GraphedBatchedStep:
+    """``bstep(states, img_l, img_r, flags=None) -> (states, outs,
+    flags)``, ``step.make_batched_step``'s signature ((B,H,W) images,
+    lists of B states, FrameOuts and HostFlags): B :class:`GraphedStep`
+    whose graphs are captured together, in one pool on one side stream.
+
+    A batched frame runs every sequence's :meth:`GraphedStep.track`, one
+    ``step._read_decisions`` over the booted ones (the batch's only host
+    sync), then every sequence's :meth:`GraphedStep.finish`; a sequence
+    not yet booted bootstraps eagerly there. Sequence b's results are bit
+    for bit those of a batch of one. The returned states are the steps'
+    live buffers and the FrameOuts their static ones: the next batched
+    frame overwrites both."""
+
+    def __init__(self, cfg: SvoConfig, B: int, device="cuda"):
+        self.cfg = cfg
+        self.steps = [GraphedStep(cfg, device, capture=False)
+                      for _ in range(B)]
+        self.capture_seconds = 0.0
+        self.pool_bytes = 0
+        if self.steps[0].device.type == "cuda":
+            self.capture_seconds, self.pool_bytes = _capture_graphs(
+                self.steps)
+
+    @property
+    def states(self) -> List[SlamState]:
+        """The live states, one a sequence."""
+        return [step.state for step in self.steps]
+
+    @property
+    def replays(self) -> Dict[str, int]:
+        """Replays of each graph over the batch (CPU: body runs)."""
+        return {name: sum(s.replays[name] for s in self.steps)
+                for name in GRAPHS}
+
+    def __call__(self, states: List[SlamState], img_l: torch.Tensor,
+                 img_r: torch.Tensor,
+                 flags: Optional[List[HostFlags]] = None
+                 ) -> Tuple[List[SlamState], List[FrameOut], List[HostFlags]]:
+        if len(states) != len(self.steps):
+            raise ValueError(f"{len(states)} states: the step was made for "
+                             f"{len(self.steps)} sequences")
+        if flags is None:
+            flags = [host_flags(st) for st in states]
+        flags = [step.track(st, img_l[b], img_r[b], f) for b, (step, st, f)
+                 in enumerate(zip(self.steps, states, flags, strict=True))]
+        booted = [b for b, f in enumerate(flags) if f.booted]
+        decisions = dict(zip(booted, _read_decisions(
+            self.cfg, [self.steps[b].tracked for b in booted]))) \
+            if booted else {}
+        done = [step.finish(f, decisions.get(b))
+                for b, (step, f) in enumerate(zip(self.steps, flags))]
+        new_states, outs, new_flags = (list(x) for x in zip(*done))
+        return new_states, outs, new_flags
 
 
 def make_graphed_step(cfg: SvoConfig, device="cuda") -> GraphedStep:
@@ -361,5 +505,15 @@ def make_graphed_step(cfg: SvoConfig, device="cuda") -> GraphedStep:
     return GraphedStep(cfg, device)
 
 
-__all__ = ["make_graphed_step", "GraphedStep", "capture", "scan",
-           "counter_of", "GRAPHS", "KERNELS"]
+def make_graphed_batched_step(cfg: SvoConfig, B: int, device="cuda"
+                              ) -> GraphedBatchedStep:
+    """The counterpart of ``step.make_batched_step`` on B graphed steps
+    that share one graph pool and one side stream:
+    ``bstep(states, img_l, img_r, flags=None) -> (states, outs, flags)``
+    with one host sync per batched frame."""
+    return GraphedBatchedStep(cfg, B, device)
+
+
+__all__ = ["make_graphed_step", "make_graphed_batched_step", "GraphedStep",
+           "GraphedBatchedStep", "capture", "scan", "counter_of", "GRAPHS",
+           "KERNELS"]

@@ -6,9 +6,11 @@
 ``StereoSvo``, ``run_sequence`` and ``run_sequence_scan`` run the
 graph-captured step (``graphed.make_graphed_step``), as the reference's
 runners run the jitted, state-donating one; ``run_sequence_batched`` runs
-the eager batched step. Poses and metrics stay on the device until read,
-so a frame costs the step's single host sync and nothing more (one per
-batched frame for the batched runner).
+its batched form (``graphed.make_graphed_batched_step``), as the
+reference's runs the jitted batched step. Every frame after a sequence's
+bootstrap replays graphs. Poses and metrics stay on the device until
+read, so a frame costs the step's single host sync and nothing more (one
+per batched frame for the batched runner).
 """
 
 from __future__ import annotations
@@ -20,9 +22,9 @@ import torch
 
 from ..config import SvoConfig
 from ..device import resolve
-from .graphed import make_graphed_step
-from .state import FrameOut, SlamState, init_state
-from .step import HostFlags, host_flags, make_batched_step
+from .graphed import make_graphed_batched_step, make_graphed_step
+from .state import FrameOut, SlamState
+from .step import HostFlags, host_flags
 
 
 class StereoSvo:
@@ -135,18 +137,19 @@ def run_sequence_batched(cfg: SvoConfig, lefts, rights, device="cuda"
                          ) -> Tuple[SlamState, FrameOut]:
     """Multi-sequence batched odometry: lefts/rights (B,T,H,W) in; the
     final states stacked (every field with a leading B axis) and a
-    FrameOut with leading (B,T) axes out. One host sync per batched frame
-    after the first (:func:`step.make_batched_step`); the states are
+    FrameOut with leading (B,T) axes out, through the graph-captured
+    batched step (:func:`graphed.make_graphed_batched_step`; captured here,
+    once): one host sync per batched frame after the first; the states are
     stacked once, at the end."""
     device = resolve(device)
     lefts, rights = _images(lefts, device), _images(rights, device)
     B, T = lefts.shape[:2]
-    bstep = make_batched_step(cfg)
-    states = [init_state(cfg, device) for _ in range(B)]
+    bstep = make_graphed_batched_step(cfg, B, device)
+    states = bstep.states
     flags = [HostFlags(booted=False, tracking_ok=True)] * B
     outs = []
     for t in range(T):
         states, out, flags = bstep(states, lefts[:, t], rights[:, t], flags)
-        outs.append(out)
+        outs.append([FrameOut(*(x.clone() for x in o)) for o in out])
     per_seq = [_stack([outs[t][b] for t in range(T)]) for b in range(B)]
     return _stack(states), _stack(per_seq)

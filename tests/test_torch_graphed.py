@@ -2,25 +2,32 @@
 and the JAX package's jitted ``StereoSvo``.
 
 On the CPU the graphed step runs its phase bodies directly on its static
-buffers, so every copy into them — into the staged state ``S'`` and back
-into the live state ``S`` — is exercised here: it must equal the eager
-``step.make_step`` bit for bit over frames that take every branch — the
-bootstrap, keyframe frames (window BA), a blackout of two frames (the
+buffers, so every copy into them — into the staged state ``S'``, from
+``S'`` back into itself (the keyframe phase) and back into the live state
+``S`` — is exercised here: it must equal the eager ``step.make_step`` bit
+for bit over frames that take every branch — the bootstrap, keyframe
+frames (the ``K`` body: insertion and window BA), with the online loop on
+a due keyframe (the ``K_loop`` body), a blackout of two frames (the
 ``A_fail`` variant on the frame after a failure), a ``resume`` from a
 mid-run state and a ``svo.state =`` assignment.
 
 The ``cuda`` tests (skipped without a card) capture the graphs and hold
-the replays to the eager step on the card, bit for bit; replay twice in a
-row (B4's ticket counter resets itself) and add each graph's kernel nodes,
-read through libcuda, to the launch counters; and show that a body that
-synchronises, or a counted launch that the graph does not hold, makes
-capture raise, with no eager fallback. On the card's
+the replays to the eager step on the card, bit for bit, across keyframe
+frames and a due online loop; replay twice in a row (B4's ticket counter
+resets itself) and add each graph's kernel nodes, read through libcuda,
+to the launch counters; and show that a body that synchronises, or a
+counted launch that the graph does not hold, makes capture raise, with no
+eager fallback. On the card's
 machine, which has no JAX: ``python -m pytest --noconftest -m cuda
 tests/test_torch_graphed.py``.
 
 The small camera and settings are those of tests/test_torch_tracking_loss.py
 (376×240), whose tolerances the comparison with JAX uses.
 """
+
+import dataclasses
+import gc
+import weakref
 
 import numpy as np
 import pytest
@@ -50,6 +57,9 @@ CFG_KW = dict(grid_rows=10, grid_cols=13, max_features=130, num_levels=3,
               align_levels=3, klt_levels=3, stereo_max_disp=64,
               kf_min_tracked=40, border_margin=10)
 CFG = SvoConfig(camera=CameraConfig(**CAM_KW), **CFG_KW)
+# the online loop on every second keyframe created, over a 12-slot bank:
+# due at the first keyframe after the bootstrap, not at the second
+LOOP_CFG = dataclasses.replace(CFG, online_loop_every=2, mem_keyframes=12)
 N_FRAMES, DT, BLACK = 30, 0.12, (6, 7)
 RESUME_AT, ASSIGN_AT = 12, 18
 POSE_ATOL = 2e-4           # tests/test_torch_tracking_loss.py
@@ -145,6 +155,44 @@ def test_graphed_cpu_equals_eager_bit_for_bit(frames, eager_run):
     # S' has a buffer of its own for every field
     live = {graphed._storage(x) for x in step._s}
     assert not live & {graphed._storage(x) for x in step._s1}
+    # every keyframe frame after the bootstrap went through the K body
+    kf = [bool(o.kf_inserted) for o in eager_run[0]]
+    assert step.replays["K"] == sum(kf[1:]) and step.replays["K_loop"] == 0
+    assert "K_loop" not in step.graph_names
+
+
+def _loop_calls(monkeypatch):
+    """Count the calls of ``step.run_online_loop`` (``kf_phase`` looks it
+    up at each call) without reading the device: a call may be captured."""
+    calls = []
+    orig = step_mod.run_online_loop
+
+    def counted(cfg, st):
+        calls.append(1)
+        return orig(cfg, st)
+
+    monkeypatch.setattr(step_mod, "run_online_loop", counted)
+    return calls
+
+
+def test_graphed_cpu_online_loop_through_k_loop_bit_for_bit(frames,
+                                                            monkeypatch):
+    """With the online loop on, a keyframe frame where the loop is due
+    goes through the K_loop body and the others through K: bit for bit the
+    eager step, and the replays count the keyframe and loop frames."""
+    lefts, rights, _ = frames
+    calls = _loop_calls(monkeypatch)
+    eager = _run(step_mod.make_step(LOOP_CFG), init_state(LOOP_CFG, "cpu"),
+                 lefts, rights)
+    n_loop = len(calls)
+    step = graphed.make_graphed_step(LOOP_CFG, "cpu")
+    got = _run(step, init_state(LOOP_CFG, "cpu"), lefts, rights)
+    _assert_equal_runs(got, eager)
+    n_kf = sum(bool(o.kf_inserted) for o in eager[0][1:])
+    assert n_loop >= 1 and n_kf - n_loop >= 1       # both bodies ran
+    assert step.replays["K_loop"] == n_loop == len(calls) - n_loop
+    assert step.replays["K"] == n_kf - n_loop
+    assert step.replays["B"] == N_FRAMES - 1
 
 
 def test_graphed_cpu_resume_and_assignment_bit_for_bit(frames, eager_run):
@@ -248,6 +296,32 @@ def test_counter_of_reads_libcuda_and_profiler_names():
         assert graphed.counter_of(other) is None, other
 
 
+def test_a_dropped_step_is_freed_by_reference_counting(frames):
+    """A step holds no reference cycle, so dropping it frees it (on the
+    card: destroys its graphs) at once. Freed later by the cyclic
+    collector, it could destroy its graphs during another step's capture,
+    which invalidates that capture."""
+    lefts, rights, _ = frames
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        for make in (lambda: graphed.make_graphed_step(LOOP_CFG, "cpu"),
+                     lambda: graphed.make_graphed_batched_step(CFG, 2,
+                                                               "cpu")):
+            step = make()
+            ref = weakref.ref(step)
+            if isinstance(step, graphed.GraphedStep):
+                flags = None
+                for i in range(2):
+                    _, _, flags = step(step.state, lefts[i], rights[i],
+                                       flags)
+            del step
+            assert ref() is None
+    finally:
+        if collecting:
+            gc.enable()
+
+
 def test_static_buffers_refuse_a_wrong_image_or_field():
     step = graphed.make_graphed_step(CFG, "cpu")
     img = torch.zeros(CFG.camera.height, CFG.camera.width + 1)
@@ -272,10 +346,55 @@ def test_graphed_on_the_card_equals_eager_bit_for_bit(cuda_device):
     eager = _run(step_mod.make_step(CFG), init_state(CFG, cuda_device),
                  lefts, rights)
     step = graphed.make_graphed_step(CFG, cuda_device)
-    assert set(step.graphs) == set(graphed.GRAPHS)
+    # the online loop is off: no K_loop
+    assert set(step.graphs) == set(graphed.GRAPHS) - {"K_loop"}
     got = _run(step, init_state(CFG, cuda_device), lefts, rights,
                resume_state=_clone(eager[1]))
     _assert_equal_runs(got, eager)
+    kf = [bool(o.kf_inserted) for o in eager[0]]
+    assert step.replays["K"] == sum(kf[1:])
+
+
+@pytest.mark.cuda
+def test_graphed_on_the_card_online_loop_bit_for_bit(cuda_device,
+                                                     monkeypatch):
+    """Keyframe frames replay K (insertion, window BA: cuSOLVER's Cholesky
+    under capture) and the due one K_loop (the online loop: jacfwd and
+    solve_ex under capture), bit for bit the eager step."""
+    lefts, rights, _ = _frames(cuda_device)
+    calls = _loop_calls(monkeypatch)
+    eager = _run(step_mod.make_step(LOOP_CFG),
+                 init_state(LOOP_CFG, cuda_device), lefts, rights)
+    n_loop = len(calls)
+    step = graphed.make_graphed_step(LOOP_CFG, cuda_device)
+    assert set(step.graphs) == set(graphed.GRAPHS)
+    got = _run(step, init_state(LOOP_CFG, cuda_device), lefts, rights)
+    _assert_equal_runs(got, eager)
+    n_kf = sum(bool(o.kf_inserted) for o in eager[0][1:])
+    # the online loop ran eagerly only in the warm-up and the capture
+    assert n_loop >= 1 and len(calls) == n_loop + 2
+    assert step.replays["K_loop"] == n_loop
+    assert step.replays["K"] == n_kf - n_loop >= 1
+
+
+@pytest.mark.cuda
+def test_keyframe_graphs_hold_their_kernels(cuda_device):
+    """K holds the insertion's B3 launches (the stereo match); K_loop adds
+    the online loop's B2, B3 and B4 at the thumbnail. Each graph's kernel
+    nodes equal what its capture counted (capture raises otherwise), and a
+    replay adds them to the counters."""
+    step = graphed.make_graphed_step(LOOP_CFG, cuda_device)
+    k, kl = step.kernel_nodes["K"], step.kernel_nodes["K_loop"]
+    assert k["sample_patches"] > 0 and k["halfsample"] == 0
+    assert all(kl[x] > k[x]
+               for x in ("gradients", "sample_patches", "gn_accumulate"))
+    for name in ("K", "K_loop"):
+        c0 = graphed._counts()
+        step._run(name)
+        c1 = graphed._counts()
+        assert {key: c1[key] - c0[key] for key in c0} \
+            == step.kernel_nodes[name]
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
