@@ -152,7 +152,7 @@ def batched_profile(dev):
     box = {"flags": flags}
 
     def frame(t):
-        box["flags"] = bstep(bstep.states, lefts[:, t], rights[:, t],
+        box["flags"] = bstep(bstep.state, lefts[:, t], rights[:, t],
                              box["flags"])[2]
 
     t_prof = T // 2
@@ -174,7 +174,7 @@ def batched_profile(dev):
                batched_frame_ms_median=statistics.median(steady),
                fps_aggregate_of_median=B * 1e3 / statistics.median(steady),
                replays=bstep.replays, capture_seconds=bstep.capture_seconds,
-               graph_pool_mb=bstep.pool_bytes / 2**20)
+               graph_pool_mb=bstep.pool_bytes / 2**20, nodes=bstep.nodes)
     return out
 
 

@@ -138,8 +138,9 @@ def _jacobi_cholesky_solve(S: torch.Tensor, rhs: torch.Tensor
     reference's factorisation does, with no host sync."""
     d = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(S), min=1e-12))
     S_hat = S * d[:, None] * d[None, :]
-    U, info = torch.linalg.cholesky_ex(S_hat, upper=True)
-    y = torch.cholesky_solve((rhs * d)[:, None], U, upper=True)[:, 0]
+    with solve_ops.batched_linalg(S_hat):
+        U, info = torch.linalg.cholesky_ex(S_hat, upper=True)
+        y = torch.cholesky_solve((rhs * d)[:, None], U, upper=True)[:, 0]
     y = torch.where(info == 0, y, torch.full_like(y, float("nan")))
     return y * d
 

@@ -12,8 +12,9 @@
    kernels B2, B3 and B4) and gates each edge on inlier fraction and
    round-trip consistency.
 
-The reference vmaps the alignment over the edge list; here each of the 2E
-(edge, direction) problems is a Python iteration with its own launches.
+As in the reference, the alignment is ``vmap``ped over the edge list
+(``torch.func.vmap``), once forward and once in reverse: each of its
+kernel launches (B2, B3, B4) takes the E edges as its problem axis.
 Edge indices stay device tensors (``index_select``, never ``.item()``), so
 the online path runs inside a keyframe frame without a host sync.
 ``torch.topk`` does not promise an order among equal scores where
@@ -64,6 +65,9 @@ def descriptor(img: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
 def similarity(desc: torch.Tensor, bank: torch.Tensor) -> torch.Tensor:
     """(D,) query vs (K, D) bank → (K,) ZNCC scores in [-1, 1]."""
     return bank @ desc
+
+
+N_SHIFTS = 9   # the ±1-cell shifted query variants, first among the queries
 
 
 def shifted_descriptors(img: torch.Tensor, rows: int, cols: int
@@ -130,19 +134,26 @@ def query_descriptors(img: torch.Tensor, rows: int, cols: int,
 def relocalize(kf_desc: torch.Tensor, kf_valid: torch.Tensor,
                coarse_img: torch.Tensor, rows: int, cols: int,
                n_rot: int = 0, rot_step: float = 0.15,
-               rot_gate: bool | None = None
+               rot_gate: bool | torch.Tensor | None = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Appearance-nearest bank slot for a query frame: (slot, score);
     invalid slots score -2.
 
     rot_gate: host bool — compute the rotated query variants only when
     True (the engine passes "previous frame failed", which the host holds;
-    the reference makes the same choice with ``lax.cond``).
+    the reference makes the same choice with ``lax.cond``); or a 0-dim
+    bool tensor (the batched step, per sequence under ``vmap``): the
+    variants are computed and count only where it is True, as the
+    reference's ``lax.cond`` under ``vmap`` selects.
     """
-    if rot_gate is not None and not rot_gate:
+    if isinstance(rot_gate, bool) and not rot_gate:
         n_rot = 0
     q = query_descriptors(coarse_img, rows, cols, n_rot, rot_step)
-    scores = torch.amax(kf_desc @ q.T, -1)
+    sim = kf_desc @ q.T
+    scores = torch.amax(sim, -1)
+    if isinstance(rot_gate, torch.Tensor) and n_rot > 0:
+        scores = torch.where(rot_gate, scores,
+                             torch.amax(sim[:, :N_SHIFTS], -1))
     scores = torch.where(kf_valid, scores, torch.full_like(scores, -2.0))
     return torch.argmax(scores).to(torch.int32), torch.amax(scores)
 
@@ -244,15 +255,12 @@ def measure_edges(cfg: SvoConfig, props: LoopProposals,
     Invalid proposals run on an all-false mask and return T_init."""
     cam_t, cfg_t = _thumb_cfg(cfg)
     s = 1.0 / (2 ** cfg.thumb_level)
-    th, tw = cfg.thumb_shape
 
     def one(i, j, score_valid):
-        # [image, gx, gy] of thumbnail i in one buffer: B2 writes the
-        # gradients into it and the template's B3 launch samples all three
-        buf = torch.empty((3, th, tw), dtype=kf_thumb.dtype,
-                          device=kf_thumb.device)
-        torch.index_select(kf_thumb, 0, i.reshape(1).long(), out=buf[:1])
-        pyramid_kernel.gradients(buf[0], out=buf[1:])
+        # [image, gx, gy] of thumbnail i in one tensor (B2 under vmap: one
+        # launch for every edge), which the template's B3 launch samples
+        thumb = index0(kf_thumb, i)
+        buf = torch.cat([thumb[None], pyramid_kernel.gradients_op(thumb)])
         z_i = cam_mod.disparity_to_depth(cfg.camera, index0(obs_disp, i))
         m = (index0(obs_mask, i) & index0(obs_dmask, i) & (z_i > 0.1)
              & score_valid)
@@ -268,10 +276,8 @@ def measure_edges(cfg: SvoConfig, props: LoopProposals,
                 stats["align_cost"])
 
     def measure(first, second):
-        runs = [one(props.edges_ij[e, first], props.edges_ij[e, second],
-                    props.valid[e])
-                for e in range(props.edges_ij.shape[0])]
-        return [torch.stack(x) for x in zip(*runs)]
+        return torch.func.vmap(one)(props.edges_ij[:, first],
+                                    props.edges_ij[:, second], props.valid)
 
     Z, frac, cost = measure(0, 1)
     Z_rev, frac_r, _ = measure(1, 0)

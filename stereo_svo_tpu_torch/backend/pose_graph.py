@@ -21,6 +21,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..geometry import se3
+from ..ops import solve
 
 _PIN = 1e12
 
@@ -96,7 +97,9 @@ def optimize(T_wk: torch.Tensor, valid: torch.Tensor, graph: PoseGraph,
     T = T_wk
     for _ in range(n_iters):
         J, r = _linearize(T, graph)
-        dx = torch.linalg.solve_ex(J.T @ J + damp, J.T @ r).result
+        A = J.T @ J + damp
+        with solve.batched_linalg(A):
+            dx = torch.linalg.solve_ex(A, J.T @ r).result
         T = se3.compose(se3.exp(-dx.reshape(K, 6)), T)
     final = torch.sum(_residual(T, graph) ** 2 * graph.weight[:, None])
     return T, final

@@ -53,6 +53,16 @@
 // The last block copies all partials to shared memory in one pass before
 // adding them, so its loads overlap instead of waiting one block at a time.
 //
+// The problem axis (the counterpart of the reference's jax.vmap over B
+// sequences or loop edges): both kernels take B independent problems in one
+// launch, grid dimension y, each array of problem b at a fixed element
+// stride from problem 0's (0 for an array that all problems share). Each
+// problem keeps the block partition, the assignment of terms to threads and
+// the reduction order of its one-problem launch; B4 gives each problem its
+// own slice of the partials and its own ticket counter. So problem b of a
+// launch equals a launch of problem b alone bit for bit, and a launch with
+// B = 1 is the one-problem launch.
+//
 // Plain C interface (loaded with ctypes); every entry point launches on the
 // caller's stream and returns cudaGetLastError(). Built with -fmad=false so
 // each multiply and add rounds as in the plain PyTorch version.
@@ -68,6 +78,8 @@ constexpr int kGnThreads = 256;   // B4 block: at P = 4 the terms-to-threads
                                   // its bits
 constexpr int kMaxBlocks = 128;   // B4 grid cap: the final pass adds <= 128 partials
 constexpr int kMaxImages = 3;     // B3: image, gx, gy of one level
+constexpr int kMaxProblems = 65535;   // the grid's y dimension
+constexpr int kOut = 45;          // B4's outputs per problem
 
 __device__ __forceinline__ float clampf_nan(float x, float lo, float hi) {
   // like torch.clamp / jnp.clip: a NaN stays NaN
@@ -204,17 +216,23 @@ __device__ __forceinline__ float sample(const Window& win,
 // B3: K images (planes of one (K, H, W) buffer) sampled at M centres;
 // out is (K, M, P*P). One group of G threads per centre. kP > 0: the
 // patch size at compile time (the main path's 4, 8 and 16); 0: any P.
+// Problem blockIdx.y: its images at img + y * img_stride, its centres at
+// uv + y * uv_stride, its output the y-th (K, M, P*P) block of out.
 template <int kP>
-__global__ void sample_patch_kernel(const float* __restrict__ img, int K,
-                                    int H, int W,
-                                    const float* __restrict__ uv, long M,
-                                    int P_arg, float* __restrict__ out) {
+__global__ void sample_patch_kernel(const float* __restrict__ img,
+                                    long img_stride, int K, int H, int W,
+                                    const float* __restrict__ uv,
+                                    long uv_stride, long M, int P_arg,
+                                    float* __restrict__ out) {
   extern __shared__ float smem[];
   const int P = kP > 0 ? kP : P_arg;
   const int G = group_size(P), S = P + 2, P2 = P * P;
   const int slot = threadIdx.x / G, lane = threadIdx.x - slot * G;
   const long m = (long)blockIdx.x * (blockDim.x / G) + slot;
   if (m >= M) return;   // whole groups only: no barrier below spans groups
+  img += (size_t)blockIdx.y * img_stride;                 // this problem's
+  uv += (size_t)blockIdx.y * uv_stride;
+  out += (size_t)blockIdx.y * K * M * P2;
   const float cu = uv[2 * m], cv = uv[2 * m + 1];
   float* w = smem + (size_t)slot * K * S * S;
   const Window win{w, window_origin(cu, P, W, S), window_origin(cv, P, H, S),
@@ -240,8 +258,16 @@ __global__ void sample_patch_kernel(const float* __restrict__ img, int K,
   }
 }
 
+// Element strides between two problems' arrays in B4.
+struct GnStrides {
+  long img, uv, tmpl, jac, mask, a, b;
+};
+
 // B4: sample + illumination-corrected residual + Huber weight + 6x6 normal
-// equations over the N*P^2 (feature, pixel) terms, in one launch.
+// equations over the N*P^2 (feature, pixel) terms, in one launch. Problem
+// blockIdx.y: its arrays at the strides st, its partials the y-th slice of
+// kMaxBlocks * kAcc, its ticket counter counter[y], its outputs the y-th
+// kOut of out.
 template <int kP>
 __global__ void __launch_bounds__(kGnThreads)
 gn_accumulate_kernel(const float* __restrict__ img, int H, int W,
@@ -250,8 +276,8 @@ gn_accumulate_kernel(const float* __restrict__ img, int H, int W,
                      const float* __restrict__ jac,
                      const float* __restrict__ mask, int N, int P_arg,
                      const float* __restrict__ a_ptr,
-                     const float* __restrict__ b_ptr, float huber_k,
-                     float* __restrict__ partials,
+                     const float* __restrict__ b_ptr, GnStrides st,
+                     float huber_k, float* __restrict__ partials,
                      unsigned int* __restrict__ counter,
                      float* __restrict__ out) {
   extern __shared__ float smem[];
@@ -259,6 +285,19 @@ gn_accumulate_kernel(const float* __restrict__ img, int H, int W,
   __shared__ float total[kAcc];
   __shared__ float part_s[kMaxBlocks * kAcc];   // the last block's copy
   __shared__ bool is_last;
+  {                                                       // this problem's
+    const size_t y = blockIdx.y;
+    img += y * st.img;
+    uv += y * st.uv;
+    tmpl += y * st.tmpl;
+    jac += y * st.jac;
+    mask += y * st.mask;
+    a_ptr += y * st.a;
+    b_ptr += y * st.b;
+    partials += y * kMaxBlocks * kAcc;
+    counter += y;
+    out += y * kOut;
+  }
   float acc[kAcc];
 #pragma unroll
   for (int c = 0; c < kAcc; ++c) acc[c] = 0.0f;
@@ -361,51 +400,63 @@ gn_accumulate_kernel(const float* __restrict__ img, int H, int W,
     const int i = threadIdx.x / 6, j = threadIdx.x - i * 6;
     const int r = min(i, j), c = max(i, j);
     out[threadIdx.x] = total[r * 6 - r * (r - 1) / 2 + (c - r)];
-  } else if (threadIdx.x < 45) {
+  } else if (threadIdx.x < kOut) {
     out[threadIdx.x] = total[threadIdx.x - 15];   // g, cost, n_eff, n_inl
   }
   if (threadIdx.x == 0) *counter = 0u;   // ready for the next call
 }
 
 template <int kP>
-void launch_sample(const float* img, int K, int H, int W, const float* uv,
-                   long M, int P, float* out, cudaStream_t stream) {
+void launch_sample(const float* img, long img_stride, int K, int H, int W,
+                   const float* uv, long uv_stride, long M, int P, float* out,
+                   int B, cudaStream_t stream) {
   const int threads = sample_block_threads(P);
   const int per_block = threads / group_size(P);
   const size_t shared =
       (size_t)per_block * K * (P + 2) * (P + 2) * sizeof(float);
   const long blocks = (M + per_block - 1) / per_block;
-  sample_patch_kernel<kP><<<(unsigned)blocks, threads, shared, stream>>>(
-      img, K, H, W, uv, M, P, out);
+  sample_patch_kernel<kP>
+      <<<dim3((unsigned)blocks, (unsigned)B), threads, shared, stream>>>(
+          img, img_stride, K, H, W, uv, uv_stride, M, P, out);
 }
 
 template <int kP>
 void launch_gn(const float* img, int H, int W, const float* uv,
                const float* tmpl, const float* jac, const float* mask, int N,
-               int P, const float* a_il, const float* b_il, float huber_k,
-               float* partials, unsigned int* counter, float* out,
-               int blocks, cudaStream_t stream) {
+               int P, const float* a_il, const float* b_il,
+               const GnStrides& st, float huber_k, float* partials,
+               unsigned int* counter, float* out, int blocks, int B,
+               cudaStream_t stream) {
   const size_t shared =
       (size_t)(kGnThreads / group_size(P)) * (P + 2) * (P + 2) * sizeof(float);
-  gn_accumulate_kernel<kP><<<blocks, kGnThreads, shared, stream>>>(
-      img, H, W, uv, tmpl, jac, mask, N, P, a_il, b_il, huber_k, partials,
-      counter, out);
+  gn_accumulate_kernel<kP>
+      <<<dim3((unsigned)blocks, (unsigned)B), kGnThreads, shared, stream>>>(
+          img, H, W, uv, tmpl, jac, mask, N, P, a_il, b_il, st, huber_k,
+          partials, counter, out);
 }
 
 }  // namespace
 
-extern "C" int svo_sample_patch(const float* img, int K, int H, int W,
-                                const float* uv, long M, int P, float* out,
+// B3 over B problems: problem b's (K, H, W) images at img + b * img_stride,
+// its (M, 2) centres at uv + b * uv_stride, its (K, M, P*P) output the b-th
+// block of out.
+extern "C" int svo_sample_patch(const float* img, long img_stride, int K,
+                                int H, int W, const float* uv, long uv_stride,
+                                long M, int P, float* out, int B,
                                 void* stream) {
-  if (K < 1 || K > kMaxImages || P < 1) return (int)cudaErrorInvalidValue;
-  if (M > 0) {
+  if (K < 1 || K > kMaxImages || P < 1 || B < 0 || B > kMaxProblems)
+    return (int)cudaErrorInvalidValue;
+  if (M > 0 && B > 0) {
     cudaStream_t s = (cudaStream_t)stream;
+#define SVO_SAMPLE(kP)                                                     \
+  launch_sample<kP>(img, img_stride, K, H, W, uv, uv_stride, M, P, out, B, s)
     switch (P) {
-      case 4: launch_sample<4>(img, K, H, W, uv, M, P, out, s); break;
-      case 8: launch_sample<8>(img, K, H, W, uv, M, P, out, s); break;
-      case 16: launch_sample<16>(img, K, H, W, uv, M, P, out, s); break;
-      default: launch_sample<0>(img, K, H, W, uv, M, P, out, s);
+      case 4: SVO_SAMPLE(4); break;
+      case 8: SVO_SAMPLE(8); break;
+      case 16: SVO_SAMPLE(16); break;
+      default: SVO_SAMPLE(0);
     }
+#undef SVO_SAMPLE
   }
   return (int)cudaGetLastError();
 }
@@ -418,25 +469,36 @@ extern "C" int svo_gn_blocks(int N, int P) {
   return (int)(b < kMaxBlocks ? b : kMaxBlocks);
 }
 
-// Floats of B4 scratch partials the caller allocates once (the counter is
-// one more unsigned int, zero-initialised).
+// Floats of B4 scratch partials a problem needs; the caller allocates them
+// once for each number of problems (and one zero-initialised unsigned int
+// counter a problem).
 extern "C" int svo_gn_scratch_floats(void) { return kMaxBlocks * kAcc; }
 
-extern "C" int svo_gn_accumulate(const float* img, int H, int W,
-                                 const float* uv, const float* tmpl,
-                                 const float* jac, const float* mask, int N,
-                                 int P, const float* a_il, const float* b_il,
-                                 float huber_k, float* partials,
-                                 unsigned int* counter, float* out,
-                                 void* stream) {
-  if (P < 1 || group_size(P) > kGnThreads) return (int)cudaErrorInvalidValue;
+// B4 over B problems: problem b's arrays at the element strides given
+// (0 for an array all problems share; jac's stride even, for its float2
+// loads), its partials the b-th slice of svo_gn_scratch_floats(), its
+// counter counter[b], its 45 outputs the b-th 45 of out.
+extern "C" int svo_gn_accumulate(
+    const float* img, long img_stride, int H, int W, const float* uv,
+    long uv_stride, const float* tmpl, long tmpl_stride, const float* jac,
+    long jac_stride, const float* mask, long mask_stride, int N, int P,
+    const float* a_il, long a_stride, const float* b_il, long b_stride,
+    float huber_k,
+    float* partials, unsigned int* counter, float* out, int B,
+    void* stream) {
+  if (P < 1 || group_size(P) > kGnThreads || B < 0 || B > kMaxProblems ||
+      jac_stride % 2)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaGetLastError();
   const int blocks = svo_gn_blocks(N, P);
+  const GnStrides st{img_stride,  uv_stride, tmpl_stride, jac_stride,
+                     mask_stride, a_stride,  b_stride};
   cudaStream_t s = (cudaStream_t)stream;
   if (P == 4)
-    launch_gn<4>(img, H, W, uv, tmpl, jac, mask, N, P, a_il, b_il, huber_k,
-                 partials, counter, out, blocks, s);
+    launch_gn<4>(img, H, W, uv, tmpl, jac, mask, N, P, a_il, b_il, st,
+                 huber_k, partials, counter, out, blocks, B, s);
   else
-    launch_gn<0>(img, H, W, uv, tmpl, jac, mask, N, P, a_il, b_il, huber_k,
-                 partials, counter, out, blocks, s);
+    launch_gn<0>(img, H, W, uv, tmpl, jac, mask, N, P, a_il, b_il, st,
+                 huber_k, partials, counter, out, blocks, B, s);
   return (int)cudaGetLastError();
 }

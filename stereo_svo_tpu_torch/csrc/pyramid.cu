@@ -24,6 +24,14 @@
 // stencil, one thread per pixel, neighbouring threads on neighbouring
 // columns so every warp reads and writes contiguous rows.
 //
+// The problem axis (the counterpart of the reference's jax.vmap over B
+// frames or thumbnails of one shape): both kernels take B problems in one
+// launch, grid dimension z, each with its input and outputs at a fixed
+// element stride from the first problem's. A block computes exactly what
+// the one-problem launch computes for its problem, so problem b of a launch
+// equals a launch of problem b alone bit for bit, and a launch with B = 1
+// is the one-problem launch.
+//
 // Plain C interface (loaded with ctypes); every entry point launches on the
 // caller's stream and returns cudaGetLastError().
 
@@ -40,6 +48,8 @@ struct Chain {
   float* out[CHAIN];  // image plane of each level; out[0] null: input kept
   int h[CHAIN], w[CHAIN];
   int n;              // levels in this launch, its input level included
+  long in_stride;     // elements from one problem's input to the next's
+  long out_stride;    // the same for the outputs
 };
 
 __device__ __forceinline__ float mean4(float a, float b, float c, float d) {
@@ -47,9 +57,9 @@ __device__ __forceinline__ float mean4(float a, float b, float c, float d) {
   return (((a + b) + c) + d) * 0.25f;
 }
 
-__device__ __forceinline__ void put(const Chain& c, int l, int y, int x,
-                                    float v) {
-  if (y < c.h[l] && x < c.w[l]) c.out[l][(size_t)y * c.w[l] + x] = v;
+__device__ __forceinline__ void put(const Chain& c, size_t off, int l, int y,
+                                    int x, float v) {
+  if (y < c.h[l] && x < c.w[l]) c.out[l][off + (size_t)y * c.w[l] + x] = v;
 }
 
 // Level l of the tile from the level above it in shared memory: the 2x2
@@ -71,6 +81,8 @@ __global__ void __launch_bounds__(WARPS * 32)
   __shared__ __align__(16) float l4[TILE_H / 16 * TILE_W / 16];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int y0 = blockIdx.y * TILE_H, x0 = blockIdx.x * TILE_W;
+  in += (size_t)blockIdx.z * c.in_stride;                 // this problem's
+  const size_t off = (size_t)blockIdx.z * c.out_stride;
 
   // level 0: the warp's 4 rows, each as two coalesced 32-column halves;
   // all 8 loads are issued before the first store
@@ -84,7 +96,7 @@ __global__ void __launch_bounds__(WARPS * 32)
   for (int i = 0; i < 8; ++i) {
     l0[warp][(i >> 1) * TILE_W + 32 * (i & 1) + lane] = v[i];
     if (c.out[0] != nullptr)
-      put(c, 0, y0 + 4 * warp + (i >> 1), x0 + 32 * (i & 1) + lane, v[i]);
+      put(c, off, 0, y0 + 4 * warp + (i >> 1), x0 + 32 * (i & 1) + lane, v[i]);
   }
   // c.n is the same in every thread, so these returns skip no barrier that
   // another thread waits at
@@ -95,7 +107,7 @@ __global__ void __launch_bounds__(WARPS * 32)
   for (int r = 0; r < 2; ++r) {
     const float m = down(l0[warp], TILE_W, r, lane);
     l1[warp][r * (TILE_W / 2) + lane] = m;
-    put(c, 1, (y0 >> 1) + 2 * warp + r, (x0 >> 1) + lane, m);
+    put(c, off, 1, (y0 >> 1) + 2 * warp + r, (x0 >> 1) + lane, m);
   }
   if (c.n < 3) return;
   __syncwarp();
@@ -103,7 +115,7 @@ __global__ void __launch_bounds__(WARPS * 32)
   if (lane < TILE_W / 4) {
     const float m = down(l1[warp], TILE_W / 2, 0, lane);
     l2[warp * (TILE_W / 4) + lane] = m;
-    put(c, 2, (y0 >> 2) + warp, (x0 >> 2) + lane, m);
+    put(c, off, 2, (y0 >> 2) + warp, (x0 >> 2) + lane, m);
   }
   if (c.n < 4) return;
   __syncthreads();  // every warp's level-2 row is in place
@@ -113,7 +125,7 @@ __global__ void __launch_bounds__(WARPS * 32)
     const int y = lane >> 3, x = lane & 7;
     const float m = down(l2, TILE_W / 4, y, x);
     l3[lane] = m;
-    put(c, 3, (y0 >> 3) + y, (x0 >> 3) + x, m);
+    put(c, off, 3, (y0 >> 3) + y, (x0 >> 3) + x, m);
   }
   if (c.n < 5) return;
   __syncwarp();
@@ -121,20 +133,24 @@ __global__ void __launch_bounds__(WARPS * 32)
     const int y = lane >> 2, x = lane & 3;
     const float m = down(l3, TILE_W / 8, y, x);
     l4[lane] = m;
-    put(c, 4, (y0 >> 4) + y, (x0 >> 4) + x, m);
+    put(c, off, 4, (y0 >> 4) + y, (x0 >> 4) + x, m);
   }
   if (c.n < 6) return;
   __syncwarp();
   if (lane < 2)
-    put(c, 5, y0 >> 5, (x0 >> 5) + lane, down(l4, TILE_W / 16, 0, lane));
+    put(c, off, 5, y0 >> 5, (x0 >> 5) + lane, down(l4, TILE_W / 16, 0, lane));
 }
 
 __global__ void gradients_kernel(const float* __restrict__ in,
-                                 float* __restrict__ gx,
-                                 float* __restrict__ gy, int H, int W) {
+                                 long in_stride, float* __restrict__ gx,
+                                 float* __restrict__ gy, long out_stride,
+                                 int H, int W) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= W || y >= H) return;
+  in += (size_t)blockIdx.z * in_stride;                   // this problem's
+  gx += (size_t)blockIdx.z * out_stride;
+  gy += (size_t)blockIdx.z * out_stride;
   const size_t i = (size_t)y * W + x;
   float vx = 0.0f, vy = 0.0f;
   if (x > 0 && x < W - 1) vx = 0.5f * (in[i + 1] - in[i - 1]);
@@ -144,10 +160,12 @@ __global__ void gradients_kernel(const float* __restrict__ in,
 }
 
 // Levels 0..n-1 of one launch (n <= CHAIN) from ``in``, the image of
-// level 0 (h[0] x w[0], contiguous). Launches nothing for an empty input.
-int launch_chain(const float* in, float* const* out, const int* h,
-                 const int* w, int n, cudaStream_t stream) {
-  if (h[0] <= 0 || w[0] <= 0) return (int)cudaSuccess;
+// level 0 (h[0] x w[0], contiguous), for B problems at the given strides.
+// Launches nothing for an empty input.
+int launch_chain(const float* in, long in_stride, float* const* out,
+                 long out_stride, const int* h, const int* w, int n, int B,
+                 cudaStream_t stream) {
+  if (h[0] <= 0 || w[0] <= 0 || B <= 0) return (int)cudaSuccess;
   Chain c;
   for (int l = 0; l < CHAIN; ++l) {
     c.out[l] = l < n ? out[l] : nullptr;
@@ -155,21 +173,26 @@ int launch_chain(const float* in, float* const* out, const int* h,
     c.w[l] = l < n ? w[l] : 0;
   }
   c.n = n;
-  const dim3 grid((w[0] + TILE_W - 1) / TILE_W, (h[0] + TILE_H - 1) / TILE_H);
+  c.in_stride = in_stride;
+  c.out_stride = out_stride;
+  const dim3 grid((w[0] + TILE_W - 1) / TILE_W, (h[0] + TILE_H - 1) / TILE_H,
+                  B);
   pyramid_levels_kernel<<<grid, WARPS * 32, 0, stream>>>(in, c);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// The image planes of an L-level pyramid of the H x W frame ``in``: level l
-// is the first plane of a (3, h_l, w_l) buffer, h_{l+1} = h_l / 2 (likewise
-// w), and the buffers lie one after another from ``base``. One launch for
-// L <= 6; each further launch starts from the deepest level written and
-// adds up to 5 levels, while that level is not empty.
-extern "C" int svo_pyramid(const float* in, float* base, int H, int W, int L,
-                           void* stream) {
-  if (L < 1 || L > MAX_LEVELS || H < 0 || W < 0)
+// The image planes of the L-level pyramids of B frames of H x W, frame b at
+// ``in + b * in_stride``: level l is the first plane of a (3, h_l, w_l)
+// buffer, h_{l+1} = h_l / 2 (likewise w), and one frame's buffers lie one
+// after another, frame b's from ``base + b * total`` (total: the elements
+// of one frame's buffers). One launch for L <= 6; each further launch
+// starts from the deepest level written and adds up to 5 levels, while
+// that level is not empty.
+extern "C" int svo_pyramid(const float* in, long in_stride, float* base,
+                           int H, int W, int L, int B, void* stream) {
+  if (L < 1 || L > MAX_LEVELS || H < 0 || W < 0 || B < 0 || B > 65535)
     return (int)cudaErrorInvalidValue;
   int h[MAX_LEVELS], w[MAX_LEVELS];
   float* img[MAX_LEVELS];
@@ -180,12 +203,14 @@ extern "C" int svo_pyramid(const float* in, float* base, int H, int W, int L,
     img[l] = base + off;
     off += (size_t)3 * h[l] * w[l];
   }
+  const long total = (long)off;
   for (int s = 0; s == 0 || s < L - 1; s += CHAIN - 1) {
     float* out[CHAIN];
     const int n = L - s < CHAIN ? L - s : CHAIN;
     for (int l = 0; l < n; ++l) out[l] = img[s + l];
     if (s > 0) out[0] = nullptr;  // written by the launch before
-    const int rc = launch_chain(s ? img[s] : in, out, h + s, w + s, n,
+    const int rc = launch_chain(s ? img[s] : in, s ? total : in_stride, out,
+                                total, h + s, w + s, n, B,
                                 (cudaStream_t)stream);
     if (rc != (int)cudaSuccess) return rc;
   }
@@ -198,16 +223,20 @@ extern "C" int svo_halfsample(const float* in, float* out, int H, int W,
                               void* stream) {
   float* outs[2] = {nullptr, out};
   const int h[2] = {H, H / 2}, w[2] = {W, W / 2};
-  return launch_chain(in, outs, h, w, 2, (cudaStream_t)stream);
+  return launch_chain(in, 0, outs, 0, h, w, 2, 1, (cudaStream_t)stream);
 }
 
-extern "C" int svo_gradients(const float* in, float* gx, float* gy, int H,
-                             int W, void* stream) {
-  if (H > 0 && W > 0) {
+// Gradients of B images of H x W, image b at ``in + b * in_stride``, its gx
+// and gy at ``gx + b * out_stride`` and ``gy + b * out_stride``.
+extern "C" int svo_gradients(const float* in, long in_stride, float* gx,
+                             float* gy, long out_stride, int H, int W, int B,
+                             void* stream) {
+  if (B < 0 || B > 65535) return (int)cudaErrorInvalidValue;
+  if (H > 0 && W > 0 && B > 0) {
     dim3 block(32, 8);
-    dim3 grid((W + block.x - 1) / block.x, (H + block.y - 1) / block.y);
-    gradients_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(in, gx, gy, H,
-                                                                W);
+    dim3 grid((W + block.x - 1) / block.x, (H + block.y - 1) / block.y, B);
+    gradients_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+        in, in_stride, gx, gy, out_stride, H, W);
   }
   return (int)cudaGetLastError();
 }

@@ -40,12 +40,14 @@ set-up), into one memory pool, in the order ``P``, ``A_ok``, ``A_fail``,
 buffers allocated outside the pool (``S``, ``S'``, the context, the
 output) or in the pyramid, which stays referenced; a graph's pool memory
 holds only its own temporaries (window BA's reduced system among them),
-so the graphs may replay in any order, one at a time. The batched step's
-B steps capture into one pool on one side stream the same way, graph by
-graph with every step's ``P`` first: a pyramid captured after another
-step's ``A`` could lie in that graph's temporaries, which its replays
-overwrite. Capture synchronises, so it happens here and never inside a
-frame.
+so the graphs may replay in any order, one at a time. Capture
+synchronises, so it happens here and never inside a frame.
+
+The batched step (:class:`GraphedBatchedStep`) captures the same six
+graphs once for the whole batch, over one stacked set of static buffers:
+its bodies are the ``torch.func.vmap``ped phases of
+``step.make_batched_phases``, so each kernel node takes the B sequences
+as its problem axis (the reference's jitted ``vmap``).
 
 The host's launch counters (``pyramid_kernel.LAUNCHES``,
 ``align_kernel.LAUNCHES``) do not move on a replay. After each capture the
@@ -78,8 +80,9 @@ from ..config import SvoConfig
 from ..device import resolve
 from ..ops import pyramid
 from ..ops.kernels import align_kernel, pyramid_kernel
-from .state import FrameOut, SlamState, init_state
-from .step import HostFlags, _read_decisions, host_flags, make_phases
+from .state import FrameOut, SlamState, init_state, init_states
+from .step import (HostFlags, _read_decisions, host_flags,
+                   host_flags_batched, make_batched_phases, make_phases)
 
 COUNTERS = (pyramid_kernel.LAUNCHES, align_kernel.LAUNCHES)
 KERNELS = {**pyramid_kernel.KERNELS, **align_kernel.KERNELS}
@@ -160,12 +163,10 @@ def counter_of(function: str) -> Optional[str]:
     return None
 
 
-def scan(graph: torch.cuda.CUDAGraph
-         ) -> Tuple[Dict[str, int], Dict[str, int]]:
-    """(nodes by kind — "kernel", "memcpy", "memset", "other" and any
-    other kind of ``_NODE_TYPES`` the graph holds — and kernel nodes by
-    launch counter) of a captured graph, read from the graph through
-    libcuda: each kernel node's function and that function's name."""
+def _nodes(graph: torch.cuda.CUDAGraph):
+    """(kind, CUDA function name — mangled, as libcuda gives it — or None
+    for a node that is no kernel) of every node of a captured graph, read
+    from the graph through libcuda."""
     drv = ctypes.CDLL("libcuda.so.1")
     ptr = ctypes.c_void_p
 
@@ -178,27 +179,49 @@ def scan(graph: torch.cuda.CUDAGraph
     call("cuGraphGetNodes", raw, None, ctypes.byref(n))
     nodes = (ptr * n.value)()
     call("cuGraphGetNodes", raw, nodes, ctypes.byref(n))
-    kinds = dict.fromkeys(("kernel", "memcpy", "memset", "other"), 0)
-    kernels = dict.fromkeys(KERNELS, 0)
-    counter = {}                        # function handle -> counter key
+    names = {}                          # function handle -> name
     for node in nodes:
         t = ctypes.c_int(-1)
         call("cuGraphNodeGetType", ptr(node), ctypes.byref(t))
         kind = _NODE_TYPES.get(t.value, "other")
-        kinds[kind] = kinds.get(kind, 0) + 1
         if kind != "kernel":
+            yield kind, None
             continue
         p = _KernelNodeParams()
         call("cuGraphKernelNodeGetParams_v2", ptr(node), ctypes.byref(p))
         handle = ("func", p.func) if p.func else ("kern", p.kern)
-        if handle not in counter:
+        if handle not in names:
             name = ctypes.c_char_p()
             call("cuFuncGetName" if p.func else "cuKernelGetName",
                  ctypes.byref(name), ptr(handle[1]))
-            counter[handle] = counter_of(name.value.decode())
-        if counter[handle] is not None:
-            kernels[counter[handle]] += 1
+            names[handle] = name.value.decode()
+        yield kind, names[handle]
+
+
+def scan(graph: torch.cuda.CUDAGraph
+         ) -> Tuple[Dict[str, int], Dict[str, int]]:
+    """(nodes by kind — "kernel", "memcpy", "memset", "other" and any
+    other kind of ``_NODE_TYPES`` the graph holds — and kernel nodes by
+    launch counter) of a captured graph, read from the graph through
+    libcuda: each kernel node's function and that function's name."""
+    kinds = dict.fromkeys(("kernel", "memcpy", "memset", "other"), 0)
+    kernels = dict.fromkeys(KERNELS, 0)
+    for kind, name in _nodes(graph):
+        kinds[kind] = kinds.get(kind, 0) + 1
+        key = counter_of(name) if name is not None else None
+        if key is not None:
+            kernels[key] += 1
     return kinds, kernels
+
+
+def kernel_names(graph: torch.cuda.CUDAGraph) -> Dict[str, int]:
+    """A captured graph's kernel nodes by CUDA function name (mangled):
+    what two graphs' node counts differ by."""
+    out: Dict[str, int] = {}
+    for kind, name in _nodes(graph):
+        if name is not None:
+            out[name] = out.get(name, 0) + 1
+    return out
 
 
 def capture(body: Callable[[], object], pool, stream: torch.cuda.Stream
@@ -220,25 +243,25 @@ def capture(body: Callable[[], object], pool, stream: torch.cuda.Stream
     return graph, out, {k: after[k] - before[k] for k in before}
 
 
-def _capture_graphs(steps: List["GraphedStep"]) -> Tuple[float, int]:
-    """Capture every graph of ``steps`` (one device) into one pool on one
-    side stream: first a warm-up of every body on that stream (lazy state,
-    B4's scratch for the stream, cuSOLVER's and cuBLAS's handles, the
-    first ``jacfwd``'s set-up), then the captures, each graph's kernel
+def _capture_graphs(step) -> Tuple[float, int]:
+    """Capture every graph of ``step`` (a :class:`GraphedStep` or
+    :class:`GraphedBatchedStep`) into one pool on one side stream: first
+    a warm-up of every body on that stream (lazy state, B4's scratch for
+    the stream, cuSOLVER's and cuBLAS's handles, the first ``jacfwd``'s
+    set-up), then the captures in ``GRAPHS`` order, each graph's kernel
     nodes held to what its capture counted. Capture synchronises, so it
     happens here and never inside a frame. The warm-up writes into the
     live state, which is reset to the initial state at the end. Returns
     (seconds, bytes the pool holds)."""
     t0 = time.perf_counter()
-    dev = steps[0].device
+    dev = step.device
     with torch.cuda.device(dev):
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         saved = _counts()
         with torch.cuda.stream(side):
-            for step in steps:
-                for name in step.graph_names:
-                    step._body(name)
+            for name in step.graph_names:
+                step._body(name)
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
         _set_counts(saved)          # the warm-up is set-up, not a frame
@@ -251,12 +274,10 @@ def _capture_graphs(steps: List["GraphedStep"]) -> Tuple[float, int]:
             torch.cuda.empty_cache()
             base = torch.cuda.memory_reserved(dev)
             pool = torch.cuda.graph_pool_handle()
-            # graph by graph, every step's P first: the pyramid outlives
-            # its capture, and in memory that a graph captured before it
-            # used for temporaries, that graph's replays would overwrite it
-            for step, name in ((step, name) for name in GRAPHS
-                               for step in steps
-                               if name in step.graph_names):
+            # P first: the pyramid outlives its capture, and in memory that
+            # a graph captured before it used for temporaries, that graph's
+            # replays would overwrite it
+            for name in step.graph_names:
                 graph, _, counted = capture(
                     lambda: step._body(name), pool, side)
                 step.nodes[name], step.kernel_nodes[name] = scan(graph)
@@ -271,8 +292,7 @@ def _capture_graphs(steps: List["GraphedStep"]) -> Tuple[float, int]:
                 gc.enable()
         torch.cuda.synchronize(dev)
         pool_bytes = torch.cuda.memory_reserved(dev) - base
-        for step in steps:
-            step.load(init_state(step.cfg, dev))
+        step.reset()
         torch.cuda.synchronize(dev)
     return time.perf_counter() - t0, pool_bytes
 
@@ -284,11 +304,9 @@ class GraphedStep:
 
     A frame is :meth:`track`, the host's read of its decisions
     (``step._read_decisions`` of :attr:`tracked`), then :meth:`finish`;
-    ``__call__`` runs the three. ``capture=False`` leaves the capture of a
-    CUDA step's graphs to the caller (:class:`GraphedBatchedStep`
-    captures its steps together)."""
+    ``__call__`` runs the three."""
 
-    def __init__(self, cfg: SvoConfig, device="cuda", capture: bool = True):
+    def __init__(self, cfg: SvoConfig, device="cuda"):
         self.cfg = cfg
         self.device = resolve(device)
         self._boot, self._track, self._kf, self._post = make_phases(cfg)
@@ -312,8 +330,8 @@ class GraphedStep:
         self.kernel_nodes: Dict[str, Dict[str, int]] = {}  # by counter
         self.capture_seconds = 0.0
         self.pool_bytes = 0
-        if self.device.type == "cuda" and capture:
-            self.capture_seconds, self.pool_bytes = _capture_graphs([self])
+        if self.device.type == "cuda":
+            self.capture_seconds, self.pool_bytes = _capture_graphs(self)
 
     # --- the bodies: a phase, then copies into the static buffers ---
 
@@ -391,6 +409,10 @@ class GraphedStep:
         buffers already are skipped)."""
         _copy_into(self._s, state)
 
+    def reset(self) -> None:
+        """Copy the initial state into the live buffers."""
+        self.load(init_state(self.cfg, self.device))
+
     # --- the step ---
 
     def track(self, state: SlamState, img_l: torch.Tensor,
@@ -435,65 +457,132 @@ class GraphedStep:
                  img_r: torch.Tensor, flags: Optional[HostFlags] = None
                  ) -> Tuple[SlamState, FrameOut, HostFlags]:
         flags = self.track(state, img_l, img_r, flags)
-        decision = (_read_decisions(self.cfg, [self.tracked])[0]
+        decision = (_read_decisions(self.cfg, *self.tracked)[0]
                     if flags.booted else None)
         return self.finish(flags, decision)
 
 
 class GraphedBatchedStep:
     """``bstep(states, img_l, img_r, flags=None) -> (states, outs,
-    flags)``, ``step.make_batched_step``'s signature ((B,H,W) images,
-    lists of B states, FrameOuts and HostFlags): B :class:`GraphedStep`
-    whose graphs are captured together, in one pool on one side stream.
+    flags)``, ``step.make_batched_step``'s signature (a stacked state and
+    FrameOut, every field with a leading B axis, (B,H,W) images, a list of
+    B HostFlags), on one stacked set of static buffers: the counterpart of
+    the reference's jitted batched step.
 
-    A batched frame runs every sequence's :meth:`GraphedStep.track`, one
-    ``step._read_decisions`` over the booted ones (the batch's only host
-    sync), then every sequence's :meth:`GraphedStep.finish`; a sequence
-    not yet booted bootstraps eagerly there. Sequence b's results are bit
-    for bit those of a batch of one. The returned states are the steps'
-    live buffers and the FrameOuts their static ones: the next batched
-    frame overwrites both."""
+    Its graphs are those of :class:`GraphedStep`, each captured once over
+    the whole batch: the bodies are ``step.make_batched_phases``, every
+    phase ``torch.func.vmap``ped over the stacked state, so every kernel
+    node takes the B sequences as its problem axis and a graph holds about
+    the single step's nodes, not B times them. ``A_fail`` is replayed when
+    any booted sequence failed last frame (the rotated relocalisation
+    variants count where a sequence's own state failed), ``K`` when any
+    needs a keyframe and ``K_loop`` when the online loop is due in any;
+    ``where`` keeps each sequence's own result, as the eager batched step
+    does. A batched frame reads the decisions of the whole batch once. A
+    sequence with no keyframe bootstraps eagerly (``vmap`` of ``boot``,
+    kept where the state has no keyframe). The returned state is the live
+    buffers and the FrameOut the static one: the next batched frame
+    overwrites both."""
 
     def __init__(self, cfg: SvoConfig, B: int, device="cuda"):
         self.cfg = cfg
-        self.steps = [GraphedStep(cfg, device, capture=False)
-                      for _ in range(B)]
+        self.B = B
+        self.device = resolve(device)
+        self._phases = make_batched_phases(cfg)
+        self.state: SlamState = init_states(cfg, B, self.device)  # S, live
+        self._s = _leaves(self.state)
+        self._s1 = [torch.empty_like(x) for x in self._s]        # S'
+        self._ctx: Optional[List[torch.Tensor]] = None
+        self._ctx_like = None
+        self._out: Optional[FrameOut] = None
+        hw = (B, cfg.camera.height, cfg.camera.width)
+        self._img_l = torch.zeros(hw, dtype=torch.float32, device=self.device)
+        self._img_r = torch.zeros_like(self._img_l)
+        self._pyr = None
+        self.graph_names = tuple(g for g in GRAPHS if g != "K_loop"
+                                 or cfg.online_loop_every > 0)
+        self.graphs: Dict[str, torch.cuda.CUDAGraph] = {}
+        self.replays = dict.fromkeys(GRAPHS, 0)  # (CPU: body runs)
+        self.nodes: Dict[str, Dict[str, int]] = {}
+        self.kernel_nodes: Dict[str, Dict[str, int]] = {}
         self.capture_seconds = 0.0
         self.pool_bytes = 0
-        if self.steps[0].device.type == "cuda":
-            self.capture_seconds, self.pool_bytes = _capture_graphs(
-                self.steps)
+        if self.device.type == "cuda":
+            self.capture_seconds, self.pool_bytes = _capture_graphs(self)
 
-    @property
-    def states(self) -> List[SlamState]:
-        """The live states, one a sequence."""
-        return [step.state for step in self.steps]
+    def _body(self, name: str) -> None:
+        """Run graph ``name``'s body (see :meth:`GraphedStep._body`)."""
+        ph = self._phases
+        if name == "P":
+            self._pyr = ph.pyramid(self._img_l)
+        elif name in ("A_ok", "A_fail"):
+            st, ctx = ph.track(self.state, self._pyr, self._img_r,
+                               any_failed=name == "A_fail")
+            _copy_into(self._s1, st)
+            if self._ctx is None:
+                self._ctx_like = ctx
+                self._ctx = [torch.empty_like(x) for x in _leaves(ctx)]
+            _copy_into(self._ctx, ctx)
+        elif name in ("K", "K_loop"):
+            _copy_into(self._s1, ph.kf(self._staged(), self._pyr,
+                                       self._img_r, self.context,
+                                       run_loop=name == "K_loop"))
+        else:
+            st, out = ph.post(self._staged(), self._pyr, self.context)
+            _copy_into(self._s, st)
+            if self._out is None:
+                self._out = FrameOut(*(torch.empty_like(x) for x in out))
+            _copy_into(list(self._out), out)
 
-    @property
-    def replays(self) -> Dict[str, int]:
-        """Replays of each graph over the batch (CPU: body runs)."""
-        return {name: sum(s.replays[name] for s in self.steps)
-                for name in GRAPHS}
+    _staged = GraphedStep._staged
+    context = GraphedStep.context
+    tracked = GraphedStep.tracked
+    _run = GraphedStep._run
+    load = GraphedStep.load
 
-    def __call__(self, states: List[SlamState], img_l: torch.Tensor,
+    def reset(self) -> None:
+        """Copy the initial states into the live buffers."""
+        self.load(init_states(self.cfg, self.B, self.device))
+
+    def __call__(self, states: SlamState, img_l: torch.Tensor,
                  img_r: torch.Tensor,
                  flags: Optional[List[HostFlags]] = None
-                 ) -> Tuple[List[SlamState], List[FrameOut], List[HostFlags]]:
-        if len(states) != len(self.steps):
-            raise ValueError(f"{len(states)} states: the step was made for "
-                             f"{len(self.steps)} sequences")
+                 ) -> Tuple[SlamState, FrameOut, List[HostFlags]]:
+        if states is not self.state:
+            self.load(states)
         if flags is None:
-            flags = [host_flags(st) for st in states]
-        flags = [step.track(st, img_l[b], img_r[b], f) for b, (step, st, f)
-                 in enumerate(zip(self.steps, states, flags, strict=True))]
-        booted = [b for b, f in enumerate(flags) if f.booted]
-        decisions = dict(zip(booted, _read_decisions(
-            self.cfg, [self.steps[b].tracked for b in booted]))) \
-            if booted else {}
-        done = [step.finish(f, decisions.get(b))
-                for b, (step, f) in enumerate(zip(self.steps, flags))]
-        new_states, outs, new_flags = (list(x) for x in zip(*done))
-        return new_states, outs, new_flags
+            flags = host_flags_batched(self.state)
+        if len(flags) != self.B:
+            raise ValueError(f"{len(flags)} sequences: the step was made "
+                             f"for {self.B}")
+        for buf, img in ((self._img_l, img_l), (self._img_r, img_r)):
+            if tuple(img.shape) != tuple(buf.shape):
+                raise ValueError(f"images {tuple(img.shape)}: the step was "
+                                 f"made for {tuple(buf.shape)}")
+            buf.copy_(img)
+        self._run("P")
+        booted = [f.booted for f in flags]
+        if not any(booted):
+            st, out = self._phases.boot(self.state, self._pyr, self._img_r)
+            _copy_into(self._s, st)
+            return self.state, out, [HostFlags(True, True)] * self.B
+        failed = not all(f.tracking_ok for f in flags if f.booted)
+        self._run("A_fail" if failed else "A_ok")
+        decisions = _read_decisions(self.cfg, *self.tracked)
+        ours = [d for d, b in zip(decisions, booted) if b]
+        if any(need_kf for need_kf, _, _ in ours):
+            self._run("K_loop" if any(loop for _, _, loop in ours) else "K")
+        before = None
+        if not all(booted):      # boot reads S as it was before B
+            before = _tree(self.state, iter([x.clone() for x in self._s]))
+        self._run("B")
+        out = self._out
+        if before is not None:
+            st, out = self._phases.boot(before, self._pyr, self._img_r,
+                                        (self.state, self._out))
+            _copy_into(self._s, st)
+        return self.state, out, [HostFlags(True, ok or not b) for
+                                 (_, ok, _), b in zip(decisions, booted)]
 
 
 def make_graphed_step(cfg: SvoConfig, device="cuda") -> GraphedStep:
@@ -507,13 +596,14 @@ def make_graphed_step(cfg: SvoConfig, device="cuda") -> GraphedStep:
 
 def make_graphed_batched_step(cfg: SvoConfig, B: int, device="cuda"
                               ) -> GraphedBatchedStep:
-    """The counterpart of ``step.make_batched_step`` on B graphed steps
-    that share one graph pool and one side stream:
+    """The counterpart of ``step.make_batched_step`` on one stacked set of
+    static buffers, its phases captured once for the whole batch:
     ``bstep(states, img_l, img_r, flags=None) -> (states, outs, flags)``
     with one host sync per batched frame."""
     return GraphedBatchedStep(cfg, B, device)
 
 
 __all__ = ["make_graphed_step", "make_graphed_batched_step", "GraphedStep",
-           "GraphedBatchedStep", "capture", "scan", "counter_of", "GRAPHS",
+           "GraphedBatchedStep", "capture", "scan", "kernel_names",
+           "counter_of", "GRAPHS",
            "KERNELS"]

@@ -139,17 +139,17 @@ def run_sequence_batched(cfg: SvoConfig, lefts, rights, device="cuda"
     final states stacked (every field with a leading B axis) and a
     FrameOut with leading (B,T) axes out, through the graph-captured
     batched step (:func:`graphed.make_graphed_batched_step`; captured here,
-    once): one host sync per batched frame after the first; the states are
-    stacked once, at the end."""
+    once), whose every phase runs once for the whole batch: one host sync
+    per batched frame after the first."""
     device = resolve(device)
     lefts, rights = _images(lefts, device), _images(rights, device)
     B, T = lefts.shape[:2]
     bstep = make_graphed_batched_step(cfg, B, device)
-    states = bstep.states
+    states = bstep.state
     flags = [HostFlags(booted=False, tracking_ok=True)] * B
     outs = []
     for t in range(T):
         states, out, flags = bstep(states, lefts[:, t], rights[:, t], flags)
-        outs.append([FrameOut(*(x.clone() for x in o)) for o in out])
-    per_seq = [_stack([outs[t][b] for t in range(T)]) for b in range(B)]
-    return _stack(states), _stack(per_seq)
+        outs.append(FrameOut(*(x.clone() for x in out)))
+    outs = _stack(outs)        # (T,B,…) → (B,T,…)
+    return states, FrameOut(*(x.transpose(0, 1) for x in outs))

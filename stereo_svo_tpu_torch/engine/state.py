@@ -151,6 +151,16 @@ def init_state(cfg: SvoConfig, device="cuda") -> SlamState:
     )
 
 
+def init_states(cfg: SvoConfig, B: int, device="cuda") -> SlamState:
+    """B initial states stacked: every field with a leading B axis (the
+    reference's ``vmap`` of ``init_state``), each field its own tensor."""
+    def stack(tree):
+        return type(tree)(*(stack(v) if isinstance(v, tuple)
+                            else v.expand((B,) + v.shape).clone()
+                            for v in tree))
+    return stack(init_state(cfg, device))
+
+
 _NESTED = {"tmpl": align_ops.Template, "klt_tmpl": klt_ops.KltTemplate}
 
 

@@ -21,8 +21,12 @@ Control flow. The reference keeps every branch on the device with
   accepted" and trust guard stay on the device (``torch.where``), so a
   keyframe frame costs no more syncs.
 
-``make_batched_step`` runs B sequences per call with one such sync for the
-whole batch. ``fori_loop``s with static trip counts are Python loops. No
+``make_batched_step`` runs B sequences per call, as the reference's: each
+phase ``torch.func.vmap``ped over a stacked state, so every operation and
+every kernel launch takes the whole batch, with one such sync for the whole
+batch and ``where`` keeping each sequence's own result where a phase runs
+for some sequences only. ``fori_loop``s with static trip counts are Python
+loops. No
 tensor of the state is updated in place: each phase returns a new
 ``SlamState``, as in the reference.
 """
@@ -288,7 +292,12 @@ def make_phases(cfg: SvoConfig):
         return st, out
 
     def track_phase(st: SlamState, pyr_l, gxs, gys, img_r,
-                    prev_ok: bool = True) -> Tuple[SlamState, TrackCtx]:
+                    prev_ok: bool | torch.Tensor = True
+                    ) -> Tuple[SlamState, TrackCtx]:
+        """``prev_ok``: the host's copy of the previous frame's
+        tracking_ok (False computes the rotated relocalisation variants),
+        or a 0-dim bool tensor (the batched step): the variants are
+        computed and count where it is False."""
         # --- 1. sparse direct alignment vs previous frame, seeded from the
         # constant-velocity prior or, after a failure, the relocalisation
         # keyframe ---
@@ -297,7 +306,8 @@ def make_phases(cfg: SvoConfig):
             st.mem_desc, st.mem_valid, pyr_l[cfg.num_levels - 1],
             cfg.loop_desc_rows, cfg.loop_desc_cols,
             n_rot=cfg.pr_rot_variants, rot_step=cfg.pr_rot_step_rad,
-            rot_gate=not prev_ok)
+            rot_gate=(~prev_ok if isinstance(prev_ok, torch.Tensor)
+                      else not prev_ok))
         latest = torch.argmax(torch.where(
             st.mem_valid, st.mem_stamp, torch.full_like(st.mem_stamp, -1)))
         reloc = torch.where(reloc_score >= cfg.reloc_min_score,
@@ -489,110 +499,197 @@ def make_phases(cfg: SvoConfig):
     return boot, track_phase, kf_phase, post_phase
 
 
-def loop_due(cfg: SvoConfig, mem_next: int, last_loop_mem: int) -> bool:
+def loop_due(cfg: SvoConfig, mem_next, last_loop_mem):
     """The reference's online-loop cadence and cooldown, decided for the
     keyframe about to be inserted (the bank's ``mem_next`` before the
     insertion): every ``online_loop_every``-th keyframe created, and more
-    than ``online_loop_cooldown`` keyframes after the last correction."""
+    than ``online_loop_cooldown`` keyframes after the last correction.
+    Host ints give a bool, device tensors (with the loop on) a bool
+    tensor."""
+    if cfg.online_loop_every <= 0:
+        return False
     n = mem_next + 1
-    return (cfg.online_loop_every > 0 and n % cfg.online_loop_every == 0
-            and n - last_loop_mem > cfg.online_loop_cooldown)
+    return ((n % cfg.online_loop_every == 0)
+            & (n - last_loop_mem > cfg.online_loop_cooldown))
 
 
-def _read_decisions(cfg: SvoConfig, tracked) -> List[Tuple[bool, bool,
-                                                            bool]]:
-    """The step's one host sync, for every (state, TrackCtx) in
-    ``tracked``: (need_kf, ok, run the online loop at this keyframe)."""
+def _read_decisions(cfg: SvoConfig, st: SlamState, ctx: TrackCtx
+                    ) -> List[Tuple[bool, bool, bool]]:
+    """The step's one host sync: (need_kf, ok, run the online loop at this
+    keyframe) of the tracked state and its TrackCtx, one sequence's or a
+    batch's stacked ones, a tuple a sequence."""
     loop = cfg.online_loop_every > 0
-    vals = []
-    for st, ctx in tracked:
-        row = [ctx.need_kf, ctx.ok]
-        if loop:
-            row = [x.to(_I32) for x in row + [st.mem_next, st.last_loop_mem]]
-        vals.extend(row)
-    vals = torch.stack(vals).tolist()
-    width = 4 if loop else 2
+    row = [ctx.need_kf, ctx.ok]
+    if loop:
+        row = [x.to(_I32) for x in row + [st.mem_next, st.last_loop_mem]]
     out = []
-    for k in range(len(tracked)):
-        r = vals[k * width:(k + 1) * width]
-        need_kf, ok = bool(r[0]), bool(r[1])
+    for need_kf, ok, *counts in torch.stack(row, -1).reshape(
+            -1, len(row)).tolist():
+        need_kf, ok = bool(need_kf), bool(ok)
         out.append((need_kf, ok,
-                    need_kf and loop and loop_due(cfg, r[2], r[3])))
+                    need_kf and loop and loop_due(cfg, *counts)))
     return out
-
-
-def make_batched_step(cfg: SvoConfig):
-    """The per-frame step over a batch of B sequences:
-    ``bstep(states, img_l, img_r, flags=None) -> (states, outs, flags)``
-    with lists of B states, FrameOuts and HostFlags, and (B,H,W) images.
-
-    The reference vmaps each phase over a stacked state and runs the
-    keyframe phase under one batch-level ``lax.cond``, keeping each
-    sequence's result with ``where(need_kf, …)``. Here the step branches on
-    the host, so each sequence keeps its own state and runs its own phases:
-    ``track_phase`` for every booted sequence, one host sync for the whole
-    batch (every sequence's need_kf, ok and online-loop decision), then
-    ``kf_phase`` only for the sequences that need it and ``boot`` for those
-    with no keyframe, so sequence b's results are bit for bit those of a
-    batch of one (``make_step``) on sequence b alone. One launch for the
-    whole batch needs B3 and B4 with a problem axis (ROADMAP queue B).
-    """
-    boot, track_phase, kf_phase, post_phase = make_phases(cfg)
-
-    def bstep(states: List[SlamState], img_l: torch.Tensor,
-              img_r: torch.Tensor, flags: Optional[List[HostFlags]] = None
-              ) -> Tuple[List[SlamState], List[FrameOut], List[HostFlags]]:
-        if flags is None:
-            flags = [host_flags(st) for st in states]
-        B = len(states)
-        pyrs = [pyramid.build_with_gradients(img_l[b], cfg.num_levels)
-                for b in range(B)]
-        tracked = {b: track_phase(states[b], *pyrs[b], img_r[b],
-                                  prev_ok=flags[b].tracking_ok)
-                   for b in range(B) if flags[b].booted}
-        decisions = dict(zip(tracked, _read_decisions(
-            cfg, list(tracked.values())))) if tracked else {}
-        new_states, outs, new_flags = [], [], []
-        for b in range(B):
-            if b not in tracked:
-                st, out = boot(states[b], *pyrs[b], img_r[b])
-                ok = True
-            else:
-                st, ctx = tracked[b]
-                need_kf, ok, run_loop = decisions[b]
-                if need_kf:
-                    st = kf_phase(st, *pyrs[b], img_r[b], ctx.T_cw, run_loop)
-                st, out = post_phase(st, *pyrs[b], ctx)
-            new_states.append(st)
-            outs.append(out)
-            new_flags.append(HostFlags(booted=True, tracking_ok=ok))
-        return new_states, outs, new_flags
-
-    return bstep
 
 
 def make_step(cfg: SvoConfig):
     """The per-frame step for a static config:
-    ``step(state, img_l, img_r, flags=None) -> (state, FrameOut, flags)``,
-    the batched step on a batch of one.
+    ``step(state, img_l, img_r, flags=None) -> (state, FrameOut, flags)``.
 
     ``flags`` (``HostFlags``) carries what the host knows between frames;
     without it the step reads it from the state (one extra host sync).
     Images are contiguous float32 (H,W) tensors on the state's device.
     """
-    bstep = make_batched_step(cfg)
+    boot, track_phase, kf_phase, post_phase = make_phases(cfg)
 
     def step(state: SlamState, img_l: torch.Tensor, img_r: torch.Tensor,
              flags: Optional[HostFlags] = None
              ) -> Tuple[SlamState, FrameOut, HostFlags]:
-        (st,), (out,), (flags,) = bstep(
-            [state], img_l[None], img_r[None],
-            None if flags is None else [flags])
-        return st, out, flags
+        if flags is None:
+            flags = host_flags(state)
+        pyr = pyramid.build_with_gradients(img_l, cfg.num_levels)
+        if not flags.booted:
+            st, out = boot(state, *pyr, img_r)
+            return st, out, HostFlags(booted=True, tracking_ok=True)
+        st, ctx = track_phase(state, *pyr, img_r, prev_ok=flags.tracking_ok)
+        (need_kf, ok, run_loop), = _read_decisions(cfg, st, ctx)
+        if need_kf:
+            st = kf_phase(st, *pyr, img_r, ctx.T_cw, run_loop)
+        st, out = post_phase(st, *pyr, ctx)
+        return st, out, HostFlags(booted=True, tracking_ok=ok)
 
     return step
 
 
-__all__ = ["make_step", "make_batched_step", "make_phases", "run_window_ba",
+def tree_where(cond: torch.Tensor, a, b):
+    """``where(cond, a, b)`` leaf by leaf over two NamedTuple trees (nested
+    ones too) of one structure; ``cond`` a 0-dim bool (per sequence under
+    ``vmap``)."""
+    return type(a)(*(tree_where(cond, x, y) if isinstance(x, tuple)
+                     else torch.where(cond, x, y) for x, y in zip(a, b)))
+
+
+class BatchedPhases(NamedTuple):
+    """The per-frame phases over a batch of B sequences, each the
+    ``torch.func.vmap`` of the single phase over a stacked state (every
+    field with a leading B axis): every operation, and every kernel, runs
+    once for the whole batch. What a phase keeps per sequence it keeps
+    with ``where`` on device flags, as the reference's ``lax.cond`` under
+    ``vmap`` does; the host picks a phase's variant for the whole batch.
+
+    * ``pyramid(img_l)``: (B,H,W) → the batch's (levels, gxs, gys);
+    * ``track(sts, pyr, img_r, any_failed)``: ``track_phase`` of every
+      sequence; ``any_failed`` (host) computes the rotated relocalisation
+      variants, which count for the sequences whose state says their last
+      frame failed (``tracking_ok``);
+    * ``kf(sts, pyr, img_r, ctx, run_loop)``: ``keyframe.insert`` and
+      window BA, kept where ``ctx.need_kf``; ``run_loop`` (host: the loop
+      is due in some sequence) adds the online loop, kept where it is due
+      in that sequence (``loop_due`` of its counters);
+    * ``post(sts, pyr, ctx)``: ``post_phase`` → (states, FrameOuts);
+    * ``boot(sts, pyr, img_r, kept=None)``: ``boot`` of every sequence;
+      with ``kept`` (the post phase's states and FrameOuts) a sequence
+      keeps the bootstrap only where its state has no keyframe.
+    """
+    pyramid: object
+    track: object
+    kf: object
+    post: object
+    boot: object
+
+
+def make_batched_phases(cfg: SvoConfig) -> BatchedPhases:
+    """The :class:`BatchedPhases` of a configuration."""
+    boot, track_phase, kf_phase, post_phase = make_phases(cfg)
+    vmap = torch.func.vmap
+
+    def pyr_b(img_l):
+        return vmap(lambda im: pyramid.build_with_gradients(
+            im, cfg.num_levels))(img_l)
+
+    def track_b(sts, pyr, img_r, any_failed: bool):
+        def one(st, p, r):
+            return track_phase(st, *p, r, prev_ok=(
+                st.tracking_ok if any_failed else True))
+        return vmap(one)(sts, pyr, img_r)
+
+    def kf_b(sts, pyr, img_r, ctx: TrackCtx, run_loop: bool):
+        def one(st, p, r, T_cw, need_kf):
+            new = kf_phase(st, *p, r, T_cw)
+            if run_loop:
+                due = loop_due(cfg, st.mem_next, st.last_loop_mem)
+                new = tree_where(due, run_online_loop(cfg, new), new)
+            return tree_where(need_kf, new, st)
+        return vmap(one)(sts, pyr, img_r, ctx.T_cw, ctx.need_kf)
+
+    def post_b(sts, pyr, ctx: TrackCtx):
+        return vmap(lambda st, p, c: post_phase(st, *p, c))(sts, pyr, ctx)
+
+    def boot_b(sts, pyr, img_r, kept=None):
+        def one(st, p, r, *kept):
+            booted = boot(st, *p, r)
+            if not kept:
+                return booted
+            fresh = ~st.kf_valid.any()
+            return tuple(tree_where(fresh, a, b)
+                         for a, b in zip(booted, kept))
+        return vmap(one)(sts, pyr, img_r, *(kept or ()))
+
+    return BatchedPhases(pyr_b, track_b, kf_b, post_b, boot_b)
+
+
+def host_flags_batched(states: SlamState) -> List[HostFlags]:
+    """HostFlags of every sequence of a stacked state (one host sync)."""
+    vals = torch.stack([states.kf_valid.any(-1),
+                        states.tracking_ok], -1).tolist()
+    return [HostFlags(bool(b), bool(ok)) for b, ok in vals]
+
+
+def make_batched_step(cfg: SvoConfig):
+    """The per-frame step over a batch of B sequences, as the reference's:
+    ``bstep(states, img_l, img_r, flags=None) -> (states, outs, flags)``
+    with a stacked state and FrameOut (every field with a leading B axis),
+    (B,H,W) images and a list of B HostFlags.
+
+    Each phase runs once over the whole batch (:class:`BatchedPhases`):
+    the pyramid; ``track_phase`` (with the rotated variants when a booted
+    sequence failed last frame); one host sync for the whole batch (every
+    sequence's need_kf, ok and online-loop decision); the keyframe phase
+    when a booted sequence needs a keyframe (with the online loop when it
+    is due in one), kept per sequence with ``where``; the post phase; and
+    the bootstrap when a sequence has no keyframe, kept per sequence with
+    ``where``. A sequence's results are not bit for bit its single run's:
+    batched reductions and batched linear algebra sum in another order
+    (ROADMAP W7).
+    """
+    phases = make_batched_phases(cfg)
+
+    def bstep(states: SlamState, img_l: torch.Tensor, img_r: torch.Tensor,
+              flags: Optional[List[HostFlags]] = None
+              ) -> Tuple[SlamState, FrameOut, List[HostFlags]]:
+        if flags is None:
+            flags = host_flags_batched(states)
+        pyr = phases.pyramid(img_l)
+        booted = [f.booted for f in flags]
+        if not any(booted):
+            sts, outs = phases.boot(states, pyr, img_r)
+            return sts, outs, [HostFlags(True, True)] * len(flags)
+        sts, ctx = phases.track(states, pyr, img_r, any_failed=not all(
+            f.tracking_ok for f in flags if f.booted))
+        decisions = _read_decisions(cfg, sts, ctx)
+        ours = [d for d, b in zip(decisions, booted) if b]
+        if any(need_kf for need_kf, _, _ in ours):
+            sts = phases.kf(sts, pyr, img_r, ctx,
+                            run_loop=any(loop for _, _, loop in ours))
+        sts, outs = phases.post(sts, pyr, ctx)
+        if not all(booted):
+            sts, outs = phases.boot(states, pyr, img_r, (sts, outs))
+        return sts, outs, [HostFlags(True, ok or not b)
+                           for (_, ok, _), b in zip(decisions, booted)]
+
+    return bstep
+
+
+__all__ = ["make_step", "make_batched_step", "make_phases",
+           "make_batched_phases", "BatchedPhases", "run_window_ba",
            "run_online_loop", "loop_due", "world_points", "HostFlags",
-           "host_flags"]
+           "host_flags", "host_flags_batched", "tree_where"]

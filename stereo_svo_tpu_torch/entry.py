@@ -61,7 +61,7 @@ def entry(device="cuda"):
 def _dryrun_rank(rank: int, n: int) -> bool:
     """One rank of the dry run: a bootstrap step on this rank's sequence,
     then the sharded BA over all ranks."""
-    from .engine.state import init_state
+    from .engine.state import init_states
     from .engine.step import make_batched_step
     from .parallel import dist_ba, mesh as mesh_mod
 
@@ -75,9 +75,9 @@ def _dryrun_rank(rank: int, n: int) -> bool:
     rights = rng.uniform(0, 255, (n, h, w))
     img = lambda a: torch.tensor(a[rank:rank + 1],  # noqa: E731
                                  dtype=torch.float32)
-    _, outs, _ = make_batched_step(cfg)([init_state(cfg, "cpu")],
+    _, outs, _ = make_batched_step(cfg)(init_states(cfg, 1, "cpu"),
                                         img(lefts), img(rights))
-    assert bool(outs[0].kf_inserted), "bootstrap step must insert KFs"
+    assert bool(outs.kf_inserted[0]), "bootstrap step must insert KFs"
 
     # --- axis 2: distributed Schur-complement BA over the kf group ---
     dist_ba.dryrun_rank(mesh_mod.make(n, axis_name="kf"))

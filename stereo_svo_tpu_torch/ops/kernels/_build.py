@@ -23,6 +23,7 @@ import shutil
 import subprocess
 from pathlib import Path
 from types import SimpleNamespace
+from typing import Tuple
 
 import torch
 
@@ -35,15 +36,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 _SIGNATURES = {
-    "svo_pyramid": [_P, _P, _I, _I, _I, _P],
+    "svo_pyramid": [_P, _L, _P, _I, _I, _I, _I, _P],
     "svo_halfsample": [_P, _P, _I, _I, _P],
-    "svo_gradients": [_P, _P, _P, _I, _I, _P],
-    "svo_sample_patch": [_P, _I, _I, _I, _P, _L, _I, _P, _P],
+    "svo_gradients": [_P, _L, _P, _P, _L, _I, _I, _I, _P],
+    "svo_sample_patch": [_P, _L, _I, _I, _I, _P, _L, _L, _I, _P, _I, _P],
     "svo_gn_blocks": [_I, _I],
     "svo_gn_scratch_floats": [],
-    "svo_gn_accumulate": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _F,
-                          _P, _P, _P, _P],
+    "svo_gn_accumulate": [_P, _L, _I, _I, _P, _L, _P, _L, _P, _L, _P, _L,
+                          _I, _I, _P, _L, _P, _L, _F, _P, _P, _P, _I, _P],
 }
+MAX_PROBLEMS = 65535   # problems one launch takes (the grid's y or z size)
 F32 = torch.float32
 
 _lib = None  # the bound C functions, once built
@@ -133,6 +135,22 @@ def check(t: torch.Tensor, name: str, shape: tuple) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)} does not match "
                          f"{tuple(shape)}")
     raise ValueError(f"{name}: contiguous tensor required")
+
+
+def problems(t: torch.Tensor, core: int) -> Tuple[torch.Tensor, int]:
+    """``t`` (*B, *core shape) as (n, *core shape), n = prod(B), with each
+    problem's ``core`` trailing dims contiguous, and the element stride
+    from one problem to the next (0 where every problem shares one array,
+    as an ``expand`` leaves it). Copies only where no such view exists."""
+    shape = t.shape[t.dim() - core:]
+    t = t.reshape((-1,) + tuple(shape))
+    expected = 1
+    for size, stride in zip(reversed(t.shape[1:]), reversed(t.stride()[1:])):
+        if size != 1 and stride != expected:
+            t = t.contiguous()
+            break
+        expected *= size
+    return t, (t.stride(0) if t.shape[0] > 1 else 0)
 
 
 def raise_on_error(rc: int, kernel: str) -> None:

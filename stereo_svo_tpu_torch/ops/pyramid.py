@@ -9,6 +9,7 @@ B1 and each level's gradient maps with kernel B2
 from __future__ import annotations
 
 import torch
+from torch._C._functorch import is_batchedtensor
 
 from .kernels import pyramid_kernel
 
@@ -35,13 +36,12 @@ def build_with_gradients(img: torch.Tensor, num_levels: int):
     """Pyramid plus per-level gradient maps: (levels, grads_x, grads_y).
 
     Each level lives in one (3,h,w) buffer [image, gx, gy], all of them
-    views of one tensor: one B1 launch writes every image plane (level 0 a
-    copy of ``img``), one B2 launch a level writes gx and gy, and a
-    template builder samples all three with one B3 launch through
-    :func:`level_planes`."""
-    bufs = pyramid_kernel.pyramid(img, num_levels)
-    for b in bufs:
-        pyramid_kernel.gradients(b[0], out=b[1:])
+    views of one tensor that the functional op ``svo::pyramid`` returns:
+    one B1 launch writes every image plane (level 0 a copy of ``img``), one
+    B2 launch a level writes gx and gy, and building a template samples all
+    three with one B3 launch through :func:`level_planes`. Under
+    ``torch.func.vmap`` the same launches take the whole batch."""
+    bufs = pyramid_kernel.pyramid_with_gradients(img, num_levels)
     return (tuple(b[0] for b in bufs), tuple(b[1] for b in bufs),
             tuple(b[2] for b in bufs))
 
@@ -50,7 +50,11 @@ def level_planes(img: torch.Tensor, gx: torch.Tensor,
                  gy: torch.Tensor) -> torch.Tensor:
     """(3,h,w) [img, gx, gy] of one level: a view of the buffer
     :func:`build_with_gradients` keeps the level in, or a stacked copy when
-    the three maps were built apart."""
+    the three maps were built apart or are batched (under ``vmap`` a
+    tensor has no storage to test; the copy is one kernel for the
+    batch)."""
+    if is_batchedtensor(img) or is_batchedtensor(gx) or is_batchedtensor(gy):
+        return torch.stack([img, gx, gy])
     n, size = img.numel(), img.element_size()
     if (img.is_contiguous() and gx.is_contiguous() and gy.is_contiguous()
             and img.dtype == gx.dtype == gy.dtype

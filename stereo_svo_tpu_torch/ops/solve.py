@@ -8,7 +8,32 @@ floors the pivot and propagates like the reference.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+from torch._C._functorch import is_batchedtensor
+
+
+@contextlib.contextmanager
+def batched_linalg(x: torch.Tensor):
+    """Around a factorisation or solve that ``torch.func.vmap`` batches on
+    CUDA (``x`` a batched CUDA tensor): PyTorch's linear-algebra backend
+    set to cuSOLVER (with cuBLAS's batched LU) for the call and restored
+    after it. Its default sends batched ``cholesky_solve`` and a batched LU
+    above 128 rows to MAGMA, whose routines a CUDA graph does not capture;
+    cuSOLVER's and cuBLAS's run on the stream, sync nothing and capture.
+    A call that is not batched (the single-sequence step) keeps the
+    default backend, and with it its results bit for bit. The setting is
+    process-wide while the call runs."""
+    if not (is_batchedtensor(x) and x.device.type == "cuda"):
+        yield
+        return
+    before = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(before)
 
 
 def inv2x2(A: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

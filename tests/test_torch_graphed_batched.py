@@ -3,16 +3,19 @@ against the eager ``step.make_batched_step``.
 
 B = 3 sequences of tests/test_torch_graphed.py's small camera, each its
 own scene and speed along the arc; sequence 1 is blacked out on two
-frames, so that on the frame after them it runs the ``A_fail`` variant
-while sequence 0 runs ``A_ok`` and inserts a keyframe (``K``) and sequence
-2 runs ``A_ok`` alone — one batched frame mixes every variant. On the CPU
-the graphed batched step runs each sequence's bodies on its static
-buffers: it must equal the eager batched step bit for bit, with one host
-read of the decisions per batched frame after the bootstrap.
+frames, so that on the frame after them the batch runs the ``A_fail``
+variant (the rotated relocalisation variants count for sequence 1 only)
+while sequence 0 inserts a keyframe (``K``, kept for sequence 0 only) —
+one batched frame mixes every selection. On the CPU the graphed batched
+step runs the same ``vmap``ped bodies on its stacked static buffers: it
+must equal the eager batched step bit for bit, with one host read of the
+decisions per batched frame after the bootstrap.
 
-The ``cuda`` test (skipped without a card) holds a graphed batch of two to
-two single graphed runs on the card, bit for bit. On the card's machine,
-which has no JAX: ``python -m pytest --noconftest -m cuda
+The ``cuda`` tests (skipped without a card) hold, on the card, the graphed
+batched step to the eager one bit for bit, its graphs' kernel nodes to at
+most 1.5× the single step's, and each sequence to its single graphed run
+(flags equal, positions within float32 summation order). On the card's
+machine, which has no JAX: ``python -m pytest --noconftest -m cuda
 tests/test_torch_graphed_batched.py``.
 """
 
@@ -22,7 +25,7 @@ import torch
 
 from stereo_svo_tpu_torch.engine import graphed
 from stereo_svo_tpu_torch.engine import step as step_mod
-from stereo_svo_tpu_torch.engine.state import FrameOut, init_state
+from stereo_svo_tpu_torch.engine.state import FrameOut, init_states
 from stereo_svo_tpu_torch.io import synthetic
 from test_torch_graphed import CFG
 
@@ -53,26 +56,26 @@ def _clone(tree):
 
 
 def _run(bstep, states, lefts, rights):
-    """Drive a batched step over the (B,T,H,W) frames: (per-frame lists of
-    B FrameOuts, the final states), every output cloned."""
-    flags = [step_mod.HostFlags(booted=False, tracking_ok=True)] * len(states)
+    """Drive a batched step over the (B,T,H,W) frames: (per-frame stacked
+    FrameOuts, the final stacked state), every output cloned."""
+    flags = [step_mod.HostFlags(booted=False, tracking_ok=True)] * \
+        lefts.shape[0]
     outs = []
     for t in range(lefts.shape[1]):
         states, out, flags = bstep(states, lefts[:, t], rights[:, t], flags)
-        outs.append([_clone(o) for o in out])
-    return outs, [_clone(st) for st in states]
+        outs.append(_clone(out))
+    return outs, _clone(states)
 
 
 def _assert_equal(a, b):
     outs_a, states_a = a
     outs_b, states_b = b
-    for t, (xs, ys) in enumerate(zip(outs_a, outs_b, strict=True)):
-        for s, (x, y) in enumerate(zip(xs, ys, strict=True)):
-            for name, u, v in zip(FrameOut._fields, x, y):
-                assert torch.equal(u.cpu(), v.cpu()), (t, s, name)
-    for s, (x, y) in enumerate(zip(states_a, states_b, strict=True)):
-        for u, v in zip(graphed._leaves(x), graphed._leaves(y), strict=True):
-            assert torch.equal(u.cpu(), v.cpu()), s
+    for t, (x, y) in enumerate(zip(outs_a, outs_b, strict=True)):
+        for name, u, v in zip(FrameOut._fields, x, y):
+            assert torch.equal(u.cpu(), v.cpu()), (t, name)
+    for u, v in zip(graphed._leaves(states_a), graphed._leaves(states_b),
+                    strict=True):
+        assert torch.equal(u.cpu(), v.cpu())
 
 
 @pytest.fixture(scope="module")
@@ -84,15 +87,19 @@ def frames():
 def eager_run(frames):
     lefts, rights = frames
     return _run(step_mod.make_batched_step(CFG),
-                [init_state(CFG, "cpu") for _ in SEQS], lefts, rights)
+                init_states(CFG, len(SEQS), "cpu"), lefts, rights)
+
+
+def _flags(outs):
+    """(tracking_ok, kf_inserted) as (B,T) numpy bools."""
+    return (torch.stack([o.tracking_ok for o in outs], 1).cpu().numpy(),
+            torch.stack([o.kf_inserted for o in outs], 1).cpu().numpy())
 
 
 def test_the_batch_mixes_every_variant(eager_run):
     """On MIX_AT sequence 0 tracks and inserts a keyframe, sequence 1
     recovers from its blackout (A_fail) and sequence 2 tracks alone."""
-    outs = eager_run[0]
-    ok = np.array([[bool(o.tracking_ok) for o in row] for row in outs]).T
-    kf = np.array([[bool(o.kf_inserted) for o in row] for row in outs]).T
+    ok, kf = _flags(eager_run[0])
     np.testing.assert_array_equal(np.nonzero(~ok[1])[0], BLACK[1])
     assert ok[0].all() and ok[2].all()
     assert kf[0, MIX_AT] and not kf[1, MIX_AT] and not kf[2, MIX_AT]
@@ -103,38 +110,38 @@ def test_graphed_batched_cpu_equals_eager_bit_for_bit(frames, eager_run,
                                                       monkeypatch):
     """Every FrameOut and the final states equal the eager batched step's
     bit for bit; the decisions of the whole batch are read once per
-    batched frame after the bootstrap; the replays count each variant."""
+    batched frame after the bootstrap; each graph is replayed once for the
+    whole batch, A_fail on the frames after a failure in any sequence."""
     lefts, rights = frames
     reads = []
     orig = graphed._read_decisions
 
-    def counted(cfg, tracked):
-        reads.append(len(tracked))
-        return orig(cfg, tracked)
+    def counted(cfg, st, ctx):
+        reads.append(st.T_cw.shape[0])
+        return orig(cfg, st, ctx)
 
     monkeypatch.setattr(graphed, "_read_decisions", counted)
     bstep = graphed.make_graphed_batched_step(CFG, len(SEQS), "cpu")
-    got = _run(bstep, bstep.states, lefts, rights)
+    got = _run(bstep, bstep.state, lefts, rights)
     _assert_equal(got, eager_run)
-    assert reads == [len(SEQS)] * (T - 1)
-    outs = eager_run[0]
-    ok = np.array([[bool(o.tracking_ok) for o in row] for row in outs])
-    kf = np.array([[bool(o.kf_inserted) for o in row] for row in outs])
+    assert reads == [len(SEQS)] * (T - 1)   # the stacked batch, once
+    ok, kf = _flags(eager_run[0])
     replays = bstep.replays
-    assert replays["P"] == T * len(SEQS)
-    assert replays["B"] == (T - 1) * len(SEQS)
-    assert replays["A_fail"] == int((~ok[1:-1]).sum())
+    assert replays["P"] == T
+    assert replays["B"] == T - 1
+    assert replays["A_fail"] == int((~ok[:, 1:-1]).any(0).sum())
     assert replays["A_ok"] == replays["B"] - replays["A_fail"]
-    assert replays["K"] == int(kf[1:].sum()) and replays["K_loop"] == 0
-    # the states returned are the steps' live buffers
-    assert all(a is s.state for a, s in zip(bstep.states, bstep.steps))
+    assert replays["K"] == int(kf[:, 1:].any(0).sum())
+    assert replays["K_loop"] == 0
 
 
 def test_graphed_batched_refuses_a_wrong_batch():
     bstep = graphed.make_graphed_batched_step(CFG, 2, "cpu")
     img = torch.zeros(2, CFG.camera.height, CFG.camera.width)
     with pytest.raises(ValueError):
-        bstep(bstep.states[:1], img, img)
+        bstep(init_states(CFG, 1, "cpu"), img, img)
+    with pytest.raises(ValueError):
+        bstep(bstep.state, img[:1], img[:1])
 
 
 # ---- on the card ----------------------------------------------------------
@@ -146,18 +153,53 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _single_nodes(cfg, device):
+    """The single graphed step's kernel nodes by graph."""
+    step = graphed.make_graphed_step(cfg, device)
+    return {k: v["kernel"] for k, v in step.nodes.items()}
+
+
 @pytest.mark.cuda
 def test_graphed_batch_of_two_equals_single_graphed_runs(cuda_device):
-    """A graphed batch of two (one pool, one side stream for both steps'
-    graphs) equals each sequence's single graphed run, bit for bit."""
+    """Each sequence of a graphed batch of two against its single graphed
+    run on the card: tracking and keyframe flags equal on every frame,
+    positions within 2e-4 m (batched sums and solves in another float32
+    order, ROADMAP W7)."""
     seqs = SEQS[:2]
     lefts, rights = _frames(cuda_device, seqs)
     bstep = graphed.make_graphed_batched_step(CFG, len(seqs), cuda_device)
-    outs, states = _run(bstep, bstep.states, lefts, rights)
+    outs, _ = _run(bstep, bstep.state, lefts, rights)
     assert bstep.pool_bytes > 0 and bstep.capture_seconds > 0
+    ok, kf = _flags(outs)
+    pos = torch.stack([o.T_wc[..., 3] for o in outs], 1).cpu()
     for b in range(len(seqs)):
         step = graphed.make_graphed_step(CFG, cuda_device)
-        single = _run(lambda sts, l, r, f: tuple(
-            [x] for x in step(sts[0], l[0], r[0], f[0])),
-            [step.state], lefts[b:b + 1], rights[b:b + 1])
-        _assert_equal(single, ([[row[b]] for row in outs], [states[b]]))
+        flags, single = None, []
+        for t in range(T):
+            _, out, flags = step(step.state, lefts[b, t], rights[b, t],
+                                 flags)
+            single.append(_clone(out))
+        s_ok, s_kf = _flags([FrameOut(*(x[None] for x in o))
+                             for o in single])
+        np.testing.assert_array_equal(ok[b], s_ok[0])
+        np.testing.assert_array_equal(kf[b], s_kf[0])
+        s_pos = torch.stack([o.T_wc[:, 3] for o in single]).cpu()
+        assert float((pos[b] - s_pos).norm(dim=-1).max()) < 2e-4
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_batched_equals_eager_and_node_counts(cuda_device):
+    """On the card: the graphed batched step equals the eager batched step
+    bit for bit (the same launches in the same order), and each of its
+    graphs holds at most 1.5× the single step's kernel nodes at B = 3 —
+    one node per operation for the whole batch, no per-sequence loop."""
+    lefts, rights = _frames(cuda_device)
+    bstep = graphed.make_graphed_batched_step(CFG, len(SEQS), cuda_device)
+    got = _run(bstep, bstep.state, lefts, rights)
+    eager = _run(step_mod.make_batched_step(CFG),
+                 init_states(CFG, len(SEQS), cuda_device), lefts, rights)
+    _assert_equal(got, eager)
+    single = _single_nodes(CFG, cuda_device)
+    for name, n in single.items():
+        assert bstep.nodes[name]["kernel"] <= 1.5 * n, (name, n,
+                                                        bstep.nodes[name])
