@@ -8,10 +8,11 @@ Phases, one result line each, in order:
      torch/CUDA versions, the TF32 flags;
   1. build: the CUDA kernels from csrc/, timed;
   2. kernels: each of B1-B4 against its plain PyTorch version on the card
-     at every shape a shipped path gives it: B1 per pyramid (one launch
-     writes every level's image plane) and B1/B2 one level at a time,
-     exactly on every level of the 752x480 (4 and 5 levels) and 1241x376
-     pyramids, level 0 equal to the frame; B3 bit for bit
+     at every shape a shipped path gives it: B1 and B2 per pyramid (one
+     launch each writes every level's image plane, gx and gy planes) and
+     B1/B2 one level at a time, exactly on every level of the 752x480 (4
+     and 5 levels) and 1241x376 pyramids, level 0 equal to the frame, with
+     a B2 row for every level (its one-level launch); B3 bit for bit
      at N=192 (P=8 KLT, P=4 alignment, and the K=3 template launches that
      sample a level's image, gx and gy together), at the epipolar-search
      shape (3,840 centres, P=8, 620x188), the affine-KLT big templates
@@ -29,9 +30,12 @@ Phases, one result line each, in order:
      library_device_us, library_host_us and library_max_abs_err (one
      PyTorch call computing the same function, timed alone as the kernel
      is; for B1 the copy_ of the frame and L-1 chained avg_pool2d calls,
-     timed as one function; none for B4, library_reason says why); and,
-     after the paths ran, launches_per_frame of the kernel on the path that
-     gives it the shape (B1: 1.0 on every path, or the run fails);
+     for B2 per pyramid one two-channel conv2d a level, each timed as one
+     function; none for B4, library_reason says why); and, after the paths
+     ran, launches_per_frame of the kernel on the path that gives it the
+     shape (B1: 1.0 on every path; B2: 1.0 on phases 3-6 and per batched
+     frame of phase 8, and on phase 7 one a frame plus K_loop's B2 nodes a
+     loop call; or the run fails);
   3. main path: SvoConfig() as shipped (window BA on) over the 100-frame
      synthetic arc sequence (752×480, dt 0.08, seed 0) rendered on the
      card, through StereoSvo(cfg, device="cuda").new_image, which replays
@@ -77,8 +81,9 @@ Phases, one result line each, in order:
      replayed once on each of those, each sequence's keyframes equal and
      positions within BATCH_POS_TOL_M over the first BATCH_POS_FRAMES
      frames of its single graphed run (whose sequence 0 repeats phase 3's
-     first 25 poses bit for bit), and each batched graph's kernel nodes
-     at most BATCH_NODE_RATIO times the single step's; reports the
+     first 25 poses bit for bit), each batched graph's kernel nodes
+     at most BATCH_NODE_RATIO times the single step's, and the batched
+     graph P (also stress_config()'s) one B1 and one B2 node; reports the
      aggregate frames/s (the frames alone, and with the capture), the
      median of BATCH_STEADY_FRAMES host-timed steady batched frames,
      capture seconds and graph pool MB (and those of stress_config()'s
@@ -124,19 +129,21 @@ Phases, one result line each, in order:
      kernel must equal the launch counters' gain on it, and a graphed
      keyframe frame at most KF_FRAME_MAX_HOST_LAUNCHES host launches; the
      nodes of each graph (the kernel nodes by the function's name, read
-     through libcuda; K_loop from phase 7's step), capture seconds and
+     through libcuda; K_loop from phase 7's step), graph P's of phases 3-5
+     (SvoConfig(), kitti_config(), stress_config(): 2 kernel nodes, one B1
+     and one B2, or the run fails), capture seconds and
      graph pool MB, and the device busy share of a replayed tracked frame
      (which must lie in (0, 1]) and keyframe frame.
 Phase 2 also holds B2, B3 (K=3 and K=1) and B4 at the keyframe thumbnail
 (120x188, N=192, P=4, the centres a keyframe's features give it) that
 phase 7's edge measurements use.
 Phase 2 also holds each kernel's problem axis (rows with "problems"): B1
-and B2 over phase 8's 8 frames at 752x480, B3 (K=1 at P=8 and P=4, K=3 at
-P=4) and B4 over its 8 sequences at N=192, and B2, B3 and B4 over
-LOOP_EDGES=8 edges at the thumbnail (one pass of measure_edges); each
-problem bit for bit its one-problem launch, the batch against the plain
-problem-axis version (B4 within 1e-4 of the largest entry), bound and
-library call for the whole batch.
+and B2 per pyramid and B2 at level 0 over phase 8's 8 frames at 752x480,
+B3 (K=1 at P=8 and P=4, K=3 at P=4) and B4 over its 8 sequences at N=192,
+and B2, B3 and B4 over LOOP_EDGES=8 edges at the thumbnail (one pass of
+measure_edges); each problem bit for bit its one-problem launch, the batch
+against the plain problem-axis version (B4 within 1e-4 of the largest
+entry), bound and library call for the whole batch.
 Each of phases 3-11 zeroes the launch counters just before its run, reads
 them just after, and fails unless every kernel launched; it counts host
 syncs on every frame of the run (CUDA sync debug mode) and fails unless
@@ -244,10 +251,12 @@ SOURCES = {"halfsample": "stereo_svo_tpu_torch/csrc/pyramid.cu",
 # the CUDA functions each wrapper launches (as torch.profiler names them);
 # gn_partial_kernel/gn_final_kernel are the two-launch B4 of earlier trees,
 # which compare_kernels.py times
-# halfsample_kernel is the one-launch-per-level B1 of earlier trees
+# halfsample_kernel is the one-launch-per-level B1 of earlier trees,
+# gradients_kernel the one-launch-per-level B2
 KERNEL_FUNCTIONS = {"halfsample": ("pyramid_levels_kernel",
                                    "halfsample_kernel"),
-                    "gradients": ("gradients_kernel",),
+                    "gradients": ("gradients_levels_kernel",
+                                  "gradients_kernel"),
                     "sample_patches": ("sample_patch_kernel",),
                     "gn_accumulate": ("gn_accumulate_kernel",
                                       "gn_partial_kernel", "gn_final_kernel")}
@@ -255,7 +264,8 @@ LIBRARY_CALLS = {
     "halfsample": "copy_ of the frame, then L-1 chained "
                   "torch.nn.functional.avg_pool2d(x, 2) calls",
     "gradients": "torch.nn.functional.conv2d, both stencils as two output "
-                 "channels (compared on the interior)",
+                 "channels (compared on the interior); per pyramid one such "
+                 "call a level, timed as one function",
     "sample_patches": "torch.nn.functional.grid_sample(bilinear, border, "
                       "align_corners=True) on a grid built outside the "
                       "timed region (compared at interior centres)",
@@ -265,7 +275,8 @@ NO_LIBRARY_CALL = ("no single PyTorch call computes the sample, the Huber "
                    "weight and the normal equations together")
 
 
-ROW_SUMMARY = ("name", "shape", "levels", "use", "path", "problems",
+ROW_SUMMARY = ("name", "shape", "levels", "level", "per_pyramid", "use",
+               "path", "problems",
                "launches_per_frame", "launches_per_loop_call",
                "max_abs_err", "ms", "plain_ms",
                "device_us", "host_us", "bound_us", "bound_by", "library_ms",
@@ -477,8 +488,9 @@ def check_kernels(device, frame, kitti_frame, thumb):
         rows.append(row)
 
     def pyramid_case(image, path, levels, what):
-        """B1/B2 exact on every level of a pyramid, B1 built one level at a
-        time and in one launch; B1 timed per pyramid, B2 at level 0."""
+        """B1/B2 exact on every level of a pyramid, each built one level at
+        a time and in one launch; B1 and B2 timed per pyramid, B2 also at
+        every level of a shape not timed before (its one-level launch)."""
         lv = image.contiguous()
         shapes = []
         for level in range(levels):
@@ -525,7 +537,57 @@ def check_kernels(device, frame, kitti_frame, thumb):
                 lambda y: (y, image_planes(pk.pyramid(image, levels)))),
                {"levels": levels, "levels_exact": shapes},
                outputs=image_planes)
-        gradients_case(image, path)
+        pyramid_gradients_case(image[None], path, levels,
+                               {"levels_exact": shapes})
+        for level, (lh, lw) in enumerate(shapes):
+            if (lh, lw) not in level_rows:
+                level_rows.add((lh, lw))
+                gradients_case(pk.pyramid_plain(image, level + 1)[-1]
+                               .contiguous(), path,
+                               {"level": level, "levels_of": what})
+
+    level_rows = set()     # level shapes with a B2 row
+
+    def pyramid_gradients_case(frames, path, levels, extra=None):
+        """B2 per pyramid on n frames (n,h,w): one launch writes every
+        level's gx and gy from the image planes B1 wrote (once, before the
+        timing); each level of each frame bit for bit gradients_plain, each
+        frame its one-frame launch; the library call is one two-channel
+        conv2d a level, chained, compared on each level's interior. Bytes:
+        every level's image read once, gx and gy written once."""
+        n, h, w = frames.shape
+        flat = pk._launch_b1(frames, levels)
+        bufs = pk.level_views(flat, h, w, levels)
+
+        def kernel():
+            pk._launch_b2_levels(flat, h, w, levels)
+            return [(b[:, 1], b[:, 2]) for b in bufs]
+
+        plain_levels = pk.pyramid_plain(frames, levels)
+        kernel()
+        for b in range(n if n > 1 else 0):
+            one = pk.pyramid_op(frames[b], levels)
+            require(torch.equal(flat[b], one),
+                    f"gradients per pyramid: frame {b} differs from its "
+                    f"one-frame launch")
+        pixels = n * sum(sz[1] * sz[2] for sz, _, _ in pk._layout(
+            h, w, levels)[1])
+        x = [b[:, :1] for b in bufs]          # every level's image plane
+
+        def library_chain():
+            return [F.conv2d(y, stencil, padding=1) for y in x]
+
+        record("gradients", kernel,
+               lambda: [pk.gradients_plain(lv) for lv in plain_levels],
+               0.0, 0.0, [n, h, w] if n > 1 else [h, w], path,
+               4.0 * 3 * pixels, 4.0 * pixels,
+               (library_chain,
+                lambda y: ([g[:, :, 1:-1, 1:-1] for g in y],
+                           [torch.stack(g, 1)[:, :, 1:-1, 1:-1]
+                            for g in kernel()])),
+               {"levels": levels, "per_pyramid": True,
+                **({"problems": n, "each_problem_bit_equal": True}
+                   if n > 1 else {}), **(extra or {})})
 
     # B2's library call: both central differences as two conv2d channels
     stencil = torch.zeros(2, 1, 3, 3, device=device)
@@ -812,6 +874,8 @@ def check_kernels(device, frame, kitti_frame, thumb):
                        for _ in range(BATCH)])
     planes0 = pk.pyramid_with_gradients(frames8, 4)[0]     # (8,3,H,W)
     batch_pyramid_case(frames8, 4, "phase8", "8 frames, 752x480, 4 levels")
+    pyramid_gradients_case(frames8, "phase8", 4,
+                           {"use": "8 frames, 752x480, 4 levels"})
     batch_gradients_case(frames8, "phase8", "8 frames, 752x480 level 0")
     batch_patch_case(planes0[:, :1], uv8, 8, "phase8",
                      "8 sequences, KLT iterations")
@@ -1311,7 +1375,8 @@ def batched_run(cfg, counters, device, traj3):
     stress = graphed.make_graphed_batched_step(stress_config(), BATCH, device)
     stress8 = {"capture_seconds": stress.capture_seconds,
                "graph_pool_mb": stress.pool_bytes / 2**20,
-               "nodes": stress.nodes}
+               "nodes": stress.nodes,
+               "kernel_nodes_P": stress.kernel_nodes["P"]}
     del stress
     out = {"config": "SvoConfig()", "batch": BATCH, "frames": BATCH_FRAMES,
            "scene": "planes", "traj": "arc", "seeds": list(range(BATCH)),
@@ -1336,6 +1401,7 @@ def batched_run(cfg, counters, device, traj3):
            "keyframes": kf.sum(1).tolist(),
            "replays": replays,
            "nodes": bstep.nodes, "single_nodes": single_nodes,
+           "kernel_nodes_P": bstep.kernel_nodes["P"],
            "kernel_node_ratio": ratio, "kernel_node_diff": node_diff,
            "host_syncs_per_batched_frame": {
                str(c): syncs.count(c) for c in sorted(set(syncs))},
@@ -1364,9 +1430,21 @@ def batched_run(cfg, counters, device, traj3):
             f"from the single runs by {pos_err} m")
     require(all(r <= BATCH_NODE_RATIO for r in ratio.values()),
             f"batched graphs' kernel nodes / the single step's: {ratio}")
+    for key, p in (("SvoConfig()", out["kernel_nodes_P"]),
+                   ("stress_config()", stress8["kernel_nodes_P"])):
+        require(p["halfsample"] == 1 and p["gradients"] == 1,
+                f"batched graph P of {key}: {p}, not one B1 and one B2 "
+                f"node for the batch")
     require(out["single_seq0_equals_phase3"],
             "the single run of sequence 0 differs from phase 3's frames")
     return out, states
+
+
+def graph_p_nodes(svo) -> dict:
+    """Graph P's nodes by kind and its kernel nodes by launch counter, of
+    a StereoSvo's graphed step."""
+    return {"nodes": svo._step.nodes["P"],
+            "kernel_nodes": svo._step.kernel_nodes["P"]}
 
 
 def zero_counters(counters) -> None:
@@ -1904,8 +1982,10 @@ def main() -> int:
 
     # ---- phase 4: KITTI geometry ----
     mark("phase4")
-    phase4, frame_ms, metrics, _ = drive(kcfg, k_lefts, k_rights, k_gt,
-                                         counters)
+    phase4, frame_ms, metrics, svo4 = drive(kcfg, k_lefts, k_rights, k_gt,
+                                            counters)
+    graph_p = {"kitti_config()": graph_p_nodes(svo4)}
+    del svo4
     gate = max(KITTI_ATE_FLOOR_M, KITTI_ATE_FRAC * phase4["gt_travel_m"])
     phase4.update(config="kitti_config()", scene="road", traj="kitti",
                   aa=2, ate_gate_m=gate, render_seconds=k_render_s)
@@ -1921,8 +2001,10 @@ def main() -> int:
 
     # ---- phase 5: stress ----
     mark("phase5")
-    phase5, frame_ms, _, _ = drive(stress_config(), lefts, rights, gt,
-                                   counters)
+    phase5, frame_ms, _, svo5 = drive(stress_config(), lefts, rights, gt,
+                                      counters)
+    graph_p["stress_config()"] = graph_p_nodes(svo5)
+    del svo5
     phase5.update(config="stress_config()")
     emit("phase5", phase5)
     detail.update(phase5=phase5, phase5_frame_ms=frame_ms)
@@ -2083,6 +2165,14 @@ def main() -> int:
     mark("phase12")
     phase12 = graphed_vs_eager(cfg, lefts, rights, gt, counters, svo3,
                                phase3, svo7._step)
+    # graph P (the pyramid: B1, then B2 on every level) of each
+    # configuration's step: one node of each kernel
+    phase12["graph_P"] = dict(graph_p, **{"SvoConfig()": graph_p_nodes(svo3)})
+    for key, p in phase12["graph_P"].items():
+        require(p["nodes"]["kernel"] == 2
+                and p["kernel_nodes"]["halfsample"] == 1
+                and p["kernel_nodes"]["gradients"] == 1,
+                f"graph P of {key}: {p}, not one B1 and one B2 node")
     emit("phase12", phase12)
     detail["phase12"] = phase12
     mark("end")
@@ -2099,6 +2189,17 @@ def main() -> int:
     b1 = {k: p["launches_per_frame"]["halfsample"] for k, p in paths.items()}
     require(all(v == 1.0 for v in b1.values()),
             f"B1 launches per frame {b1}, not 1.0 (one per pyramid)")
+    # B2: one launch per pyramid; phase 7's online-loop calls add K_loop's
+    # B2 nodes beyond K's (the thumbnails of measure_edges) a call
+    b2 = {k: p["launches_per_frame"]["gradients"] for k, p in paths.items()
+          if k != "phase7"}
+    loop_b2 = phase7["loop_calls"] * phase7["loop_call"][
+        "launches_per_call"]["gradients"]
+    b2["phase7"] = (phase7["launches"]["gradients"] - loop_b2) / \
+        phase7["frames"]
+    require(all(v == 1.0 for v in b2.values()),
+            f"B2 launches per frame {b2} (phase 7: less its online-loop "
+            f"calls' {loop_b2}), not 1.0 (one per pyramid)")
     for row in rows:
         path = paths[row["path"]]
         row["launches"] = path["launches"][row["name"]]

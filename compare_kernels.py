@@ -22,12 +22,17 @@ of building a pyramid's image levels into its (3,h,w) level buffers: one
 the copy of level 0 and one half-sample launch per level, as that tree's
 ``ops/pyramid.build_with_gradients`` does; a "build_with_gradients" row
 times the whole layer (B2 included). Both count every CUDA function they
-launch (the copy too). A "template" row times the samples of one
-template level (image, gx and gy at the same centres): one call on the
-(3,H,W) level buffer where the tree's B3 takes one, three calls where it
-does not. B4 rows call the wrapper as the tree's ``ops/align.py`` does
-(with its ``torch.stack`` of the illumination pair where the tree's B4
-takes one tensor).
+launch (the copy too). A "gradients" row "per pyramid" times the tree's
+own way of writing every level's gx and gy of pyramids whose image
+planes B1 wrote before the timing: one launch where the tree has
+``_launch_b2_levels``, else one launch a level (for 1 frame and for 8);
+the other "gradients" rows time one level, every level of the 752x480
+(5 levels) and 1241x376 (4 levels) pyramids. A "template" row times the
+samples of one template level (image, gx and gy at the same centres): one
+call on the (3,H,W) level buffer where the tree's B3 takes one, three
+calls where it does not. B4 rows call the wrapper as the tree's
+``ops/align.py`` does (with its ``torch.stack`` of the illumination pair
+where the tree's B4 takes one tensor).
 """
 
 from __future__ import annotations
@@ -105,10 +110,34 @@ def main() -> int:
             lambda x=x, L=L: image_levels(x, L), ("",))
         row("build_with_gradients", f"{L} levels, {what}", list(x.shape),
             lambda x=x, L=L: pyramid.build_with_gradients(x, L), ("",))
-    for x, what in ((img, "752x480"), (kitti, "1241x376")):
+    def b2_pyramid(flat, h, w, L):
+        if hasattr(pk, "_launch_b2_levels"):
+            pk._launch_b2_levels(flat, h, w, L)
+            return
+        n, total = flat.shape                 # one launch a level
+        base, size = flat.data_ptr(), flat.element_size()
+        for (_, lh, lw), _, off in pk._layout(h, w, L)[1]:
+            pk._launch_b2(base + off * size, total,
+                          base + (off + lh * lw) * size,
+                          base + (off + 2 * lh * lw) * size, total, lh, lw,
+                          n, flat.device)
+
+    if hasattr(pk, "_launch_b1"):
+        frames8 = torch.stack([image(480, 752) for _ in range(8)])
+        for x, L, what in ((img, 4, "752x480"), (kitti, 4, "1241x376"),
+                           (img, 5, "752x480 5-level"),
+                           (frames8, 4, "8 frames, 752x480")):
+            flat = pk._launch_b1(x, L)
+            row("gradients", f"per pyramid, {L} levels, {what}",
+                list(x.shape), lambda flat=flat, x=x, L=L: b2_pyramid(
+                    flat, *x.shape[-2:], L))
+    for x, L, what in ((img, 5, "752x480"), (kitti, 4, "1241x376")):
         row("halfsample", f"one level, {what}", list(x.shape),
             lambda x=x: pk.halfsample(x))
-        row("gradients", what, list(x.shape), lambda x=x: pk.gradients(x))
+        for level in range(L):
+            row("gradients", f"level {level} of {what}", list(x.shape),
+                lambda x=x: pk.gradients(x))
+            x = pk.halfsample(x)
 
     uv192 = centres(192, 480, 752)
     for x, uv, P, use in ((img, uv192, 8, "KLT iterations"),

@@ -24,14 +24,16 @@ after the bootstrap: host-timed ms of the tracking and keyframe frames,
 and for the same tracking frame and keyframe frame (each with the frame
 before it in the profiler's warm-up step) the host's kernel launches,
 graph launches and copies and the device ms under torch.profiler, with
-the graphs' nodes by kind, the capture seconds and graph pool MB; and
-"batched8": chip_smoke.py phase 8's eight sequences through the graphed
-batched step (graphed.make_graphed_batched_step), host-timed batched
-frames (synchronised around each), the aggregate frames/s of their
-median, one batched frame under torch.profiler (the frame before it in
-the warm-up step), the capture seconds and graph pool MB. Every profiled
-frame or call gives chip_smoke.prof_launches' counts (host launches by
-kind, device ms, device records of each hand-written kernel).
+the graphs' nodes by kind, graph P's kernel nodes by kernel (the
+pyramid: one B1 and one B2 node), the capture seconds and graph pool
+MB; and "batched8": chip_smoke.py phase 8's eight sequences through the
+graphed batched step (graphed.make_graphed_batched_step), host-timed
+batched frames (synchronised around each), the aggregate frames/s of
+their median, one batched frame under torch.profiler (the frame before
+it in the warm-up step), the capture seconds and graph pool MB, graph
+P's kernel nodes by kernel. Every profiled frame or call gives
+chip_smoke.prof_launches' counts (host launches by kind, device ms,
+device records of each hand-written kernel).
 
 Then "loop": chip_smoke.py phase 7's run (online loop closure on the EuRoC
 rig, the loop sequence, drift injected at frame 30) through the eager
@@ -174,7 +176,8 @@ def batched_profile(dev):
                batched_frame_ms_median=statistics.median(steady),
                fps_aggregate_of_median=B * 1e3 / statistics.median(steady),
                replays=bstep.replays, capture_seconds=bstep.capture_seconds,
-               graph_pool_mb=bstep.pool_bytes / 2**20, nodes=bstep.nodes)
+               graph_pool_mb=bstep.pool_bytes / 2**20, nodes=bstep.nodes,
+               graph_P_kernel_nodes=bstep.kernel_nodes["P"])
     return out
 
 
@@ -296,6 +299,7 @@ def main() -> int:
                 kf_ms=[m for i, m in ms if i > 0 and kf[i]],
                 kf_frames=[i for i in range(n) if kf[i]],
                 graph_nodes=svo._step.nodes,
+                graph_P_kernel_nodes=svo._step.kernel_nodes["P"],
                 capture_seconds=svo._step.capture_seconds,
                 graph_pool_mb=svo._step.pool_bytes / 2**20)
             graphed[name] = g

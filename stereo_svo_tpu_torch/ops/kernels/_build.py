@@ -38,6 +38,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 _SIGNATURES = {
     "svo_pyramid": [_P, _L, _P, _I, _I, _I, _I, _P],
     "svo_halfsample": [_P, _P, _I, _I, _P],
+    "svo_pyramid_gradients": [_P, _I, _I, _I, _I, _P],
     "svo_gradients": [_P, _L, _P, _P, _L, _I, _I, _I, _P],
     "svo_sample_patch": [_P, _L, _I, _I, _I, _P, _L, _L, _I, _P, _I, _P],
     "svo_gn_blocks": [_I, _I],

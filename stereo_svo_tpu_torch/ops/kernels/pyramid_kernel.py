@@ -1,26 +1,31 @@
-"""Pyramid kernels B1 (every level's image plane) and B2 (gradients): CUDA
-wrappers, plain PyTorch versions and launch counters.
+"""Pyramid kernels B1 (every level's image plane) and B2 (every level's
+gradients): CUDA wrappers, plain PyTorch versions and launch counters.
 
 Source note. Replaces the Pallas TPU kernels
 ``stereo_svo_tpu/ops/pallas/pyramid_kernel.py::halfsample``
-(``_half_kernel``) and ``::gradients`` (``_grad_kernel``); CUDA source in
-``csrc/pyramid.cu``. Both are memory-bound stencils with almost no
-arithmetic. B1 builds a whole pyramid's image planes in one launch (up to
-six levels): each block stages a 32×64 tile of the frame in shared memory,
-writes it out as level 0 and halves it level by level there, so the frame
-is read once (752×480, 4 levels: 1.44 MB read, 1.92 MB written). B2 is one
-thread per pixel, warps along image rows (level 0 at 752×480: 1.4 MB read,
-2.9 MB written). The TPU's 16-row VMEM tiles have no counterpart.
+(``_half_kernel``) and ``::gradients`` (``_grad_kernel``, the
+``pl.pallas_call`` at line 70); CUDA source in ``csrc/pyramid.cu``. Both
+are memory-bound stencils with almost no arithmetic. B1 builds a whole
+pyramid's image planes in one launch (up to six levels): each block stages
+a 32×64 tile of the frame in shared memory, writes it out as level 0 and
+halves it level by level there, so the frame is read once (752×480, 4
+levels: 1.44 MB read, 1.92 MB written). B2 writes every level's gx and gy
+in one launch: bytes bound it, every level's image read once and gx, gy
+written once (752×480, 4 levels: 5.75 MB, 1.717 µs at 3.35 TB/s). One
+launch per level paid a full launch floor for each of levels 1–3, which
+move less than 1.1 MB; now the grid walks the tiles of every level, and a
+warp walks down 32 (or, as float4, 128) columns with gx from its
+neighbouring lanes. The TPU's 16-row VMEM tiles have no counterpart.
 
 The problem axis. Both kernels take any number of leading dims, flattened
 into one grid dimension: B frames (or thumbnails) of one shape in one
 launch, problem b bit for bit its one-problem launch. The paths reach them
-through two functional custom ops, ``svo::pyramid`` (B1, then B2 on every
-level, into one new buffer) and ``svo::gradients`` (B2 into a new (…,2,H,W)
-tensor), whose ``torch.func.vmap`` rules move the batch dims to the front
-and make one problem-axis launch (nested ``vmap`` too). On the CPU an op
-runs the plain version; on CUDA its kernels, with no fallback between the
-two.
+through two functional custom ops, ``svo::pyramid`` (two launches for up
+to six levels: B1, then B2 on every level, into one new buffer) and
+``svo::gradients`` (B2 on one level into a new (…,2,H,W) tensor), whose
+``torch.func.vmap`` rules move the batch dims to the front and make one
+problem-axis launch (nested ``vmap`` too). On the CPU an op runs the plain
+version; on CUDA its kernels, with no fallback between the two.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from . import _build
 LAUNCHES = {"halfsample": 0, "gradients": 0}
 # the CUDA function each counter's launches run (csrc/pyramid.cu)
 KERNELS = {"halfsample": "pyramid_levels_kernel",
-           "gradients": "gradients_kernel"}
+           "gradients": "gradients_levels_kernel"}
 CHAIN = 6          # levels one B1 launch builds (csrc/pyramid.cu's tile)
 MAX_LEVELS = 32    # svo_pyramid's limit
 
@@ -118,14 +123,16 @@ def _launch_b1(img: torch.Tensor, num_levels: int) -> torch.Tensor:
     return flat
 
 
-def _launch_b2(src_ptr: int, src_stride: int, gx_ptr: int, gy_ptr: int,
-               out_stride: int, h: int, w: int, n: int,
-               device: torch.device) -> None:
-    """B2 on n images of h×w at the given pointers and element strides."""
-    _build.raise_on_error(_build.load_library().svo_gradients(
-        src_ptr, src_stride, gx_ptr, gy_ptr, out_stride, h, w, n,
-        _build.stream(device)), "gradients")
-    LAUNCHES["gradients"] += int(h * w > 0 and n > 0)
+def _launch_b2_levels(flat: torch.Tensor, H: int, W: int,
+                      num_levels: int) -> None:
+    """B2 on every level of the n pyramids in ``flat`` (n, total), whose
+    image planes B1 wrote: one launch writes every gx and gy plane."""
+    n = flat.shape[0]
+    _build.check(flat, "pyramids", (n, _layout(H, W, num_levels)[0]))
+    _build.raise_on_error(_build.load_library().svo_pyramid_gradients(
+        flat.data_ptr(), H, W, num_levels, n, _build.stream(flat.device)),
+        "gradients")
+    LAUNCHES["gradients"] += int(H * W > 0 and n > 0)
 
 
 def _pyramid_flat_plain(img: torch.Tensor, num_levels: int) -> torch.Tensor:
@@ -140,20 +147,14 @@ def _pyramid_flat_plain(img: torch.Tensor, num_levels: int) -> torch.Tensor:
 def pyramid_op(img: torch.Tensor, num_levels: int) -> torch.Tensor:
     """Every level's [image, gx, gy] of the (…,H,W) frames, one after
     another in a new (…, total) tensor (:func:`level_views` cuts it): on
-    CUDA one B1 launch for all frames and levels (up to six) and one B2
-    launch a level for all frames."""
+    CUDA one B1 launch for all frames and levels (up to six), then one B2
+    launch for all frames and levels."""
     if _build.plain(img):
         return _pyramid_flat_plain(img, num_levels)
     H, W = img.shape[-2:]
     flat = _launch_b1(img, num_levels)
-    n, total = flat.shape
-    _, views, _ = _layout(H, W, num_levels)
-    base, size = flat.data_ptr(), flat.element_size()
-    for (_, h, w), _, off in views:
-        _launch_b2(base + off * size, total, base + (off + h * w) * size,
-                   base + (off + 2 * h * w) * size, total, h, w, n,
-                   img.device)
-    return flat.reshape(img.shape[:-2] + (total,))
+    _launch_b2_levels(flat, H, W, num_levels)
+    return flat.reshape(img.shape[:-2] + (flat.shape[1],))
 
 
 @pyramid_op.register_fake
@@ -165,7 +166,7 @@ def _(img, num_levels):
 @torch.library.custom_op("svo::gradients", mutates_args=())
 def gradients_op(img: torch.Tensor) -> torch.Tensor:
     """(…,2,H,W) [gx, gy] of the (…,H,W) images: on CUDA one B2 launch for
-    all of them."""
+    all of them (a one-level work list)."""
     if _build.plain(img):
         return torch.stack(gradients_plain(img), -3)
     _check_f32(img, "img")
@@ -175,9 +176,11 @@ def gradients_op(img: torch.Tensor) -> torch.Tensor:
     if n > _build.MAX_PROBLEMS:
         raise ValueError(f"{n} images: at most {_build.MAX_PROBLEMS} a launch")
     out = torch.empty((n, 2, H, W), dtype=img.dtype, device=img.device)
-    _launch_b2(src.data_ptr(), stride, out.data_ptr(),
-               out.data_ptr() + H * W * out.element_size(), 2 * H * W, H, W,
-               n, img.device)
+    _build.raise_on_error(_build.load_library().svo_gradients(
+        src.data_ptr(), stride, out.data_ptr(),
+        out.data_ptr() + H * W * out.element_size(), 2 * H * W, H, W, n,
+        _build.stream(img.device)), "gradients")
+    LAUNCHES["gradients"] += int(H * W > 0 and n > 0)
     return out.reshape(img.shape[:-2] + (2, H, W))
 
 

@@ -2,7 +2,7 @@
 
 A pyramid is a tuple of (H/2^l, W/2^l) float32 tensors. On CUDA,
 :func:`build_with_gradients` builds every level with one launch of kernel
-B1 and each level's gradient maps with kernel B2
+B1 and every level's gradient maps with one launch of kernel B2
 (``kernels/pyramid_kernel``).
 """
 
@@ -38,7 +38,7 @@ def build_with_gradients(img: torch.Tensor, num_levels: int):
     Each level lives in one (3,h,w) buffer [image, gx, gy], all of them
     views of one tensor that the functional op ``svo::pyramid`` returns:
     one B1 launch writes every image plane (level 0 a copy of ``img``), one
-    B2 launch a level writes gx and gy, and building a template samples all
+    B2 launch every level's gx and gy, and building a template samples all
     three with one B3 launch through :func:`level_planes`. Under
     ``torch.func.vmap`` the same launches take the whole batch."""
     bufs = pyramid_kernel.pyramid_with_gradients(img, num_levels)

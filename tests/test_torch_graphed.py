@@ -275,9 +275,10 @@ def test_counter_of_reads_libcuda_and_profiler_names():
                        "ainE",
                        "(anonymous namespace)::pyramid_levels_kernel(float "
                        "const*, (anonymous namespace)::Chain)"),
-        "gradients": ("_ZN12_GLOBAL__N_116gradients_kernelEPKfPfS2_ii",
-                      "(anonymous namespace)::gradients_kernel(float const*, "
-                      "float*, float*, int, int)"),
+        "gradients": ("_ZN12_GLOBAL__N_123gradients_levels_kernelENS_8Gra"
+                      "dWorkE",
+                      "(anonymous namespace)::gradients_levels_kernel("
+                      "(anonymous namespace)::GradWork)"),
         "sample_patches": ("_ZN12_GLOBAL__N_119sample_patch_kernelEPKfiii",
                            "(anonymous namespace)::sample_patch_kernel(float "
                            "const*, int, int, int)"),
@@ -292,6 +293,8 @@ def test_counter_of_reads_libcuda_and_profiler_names():
     for other in ("_ZN2at6native29vectorized_elementwise_kernelILi4EEEviT0_",
                   "void at::native::reduce_kernel<512, 1>(float*)",
                   "_Z20xgradients_kernel_2v", "my_gradients_kernel_v2(int)",
+                  # the one-launch-per-level B2 of earlier trees
+                  "_ZN12_GLOBAL__N_116gradients_kernelEPKfPfS2_ii",
                   "cudaLaunchKernel"):
         assert graphed.counter_of(other) is None, other
 
@@ -405,8 +408,9 @@ def test_replays_count_launches_and_repeat(cuda_device):
     lefts, rights, _ = _frames(cuda_device)
     step = graphed.make_graphed_step(CFG, cuda_device)
     nodes = step.kernel_nodes
-    assert nodes["P"] == {"halfsample": 1, "gradients": CFG.num_levels,
+    assert nodes["P"] == {"halfsample": 1, "gradients": 1,
                           "sample_patches": 0, "gn_accumulate": 0}
+    assert step.nodes["P"]["kernel"] == 2
     assert nodes["A_ok"]["gn_accumulate"] > 0
     assert nodes["A_fail"]["gn_accumulate"] > 0
     state, _, _ = step(step.state, lefts[0], rights[0])

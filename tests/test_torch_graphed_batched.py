@@ -192,7 +192,8 @@ def test_cuda_graphed_batched_equals_eager_and_node_counts(cuda_device):
     """On the card: the graphed batched step equals the eager batched step
     bit for bit (the same launches in the same order), and each of its
     graphs holds at most 1.5× the single step's kernel nodes at B = 3 —
-    one node per operation for the whole batch, no per-sequence loop."""
+    one node per operation for the whole batch, no per-sequence loop; P
+    holds one B1 and one B2 node for the batch's pyramids."""
     lefts, rights = _frames(cuda_device)
     bstep = graphed.make_graphed_batched_step(CFG, len(SEQS), cuda_device)
     got = _run(bstep, bstep.state, lefts, rights)
@@ -203,3 +204,5 @@ def test_cuda_graphed_batched_equals_eager_and_node_counts(cuda_device):
     for name, n in single.items():
         assert bstep.nodes[name]["kernel"] <= 1.5 * n, (name, n,
                                                         bstep.nodes[name])
+    assert bstep.kernel_nodes["P"] == {"halfsample": 1, "gradients": 1,
+                                       "sample_patches": 0, "gn_accumulate": 0}

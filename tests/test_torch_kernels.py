@@ -58,7 +58,10 @@ def test_halfsample_plain_matches_reference(shape):
             atol=3e-5)
 
 
-@pytest.mark.parametrize("shape", [(64, 256), (7, 5)])
+# KITTI's odd width and the degenerate levels of small pyramids (one row or
+# column, two of them: no interior)
+@pytest.mark.parametrize("shape", [(64, 256), (7, 5), (376, 1241), (3, 5),
+                                   (1, 7), (7, 1), (9, 2)])
 def test_gradients_plain_matches_reference(shape):
     img = _img(2, *shape)
     gx, gy = pyramid_kernel.gradients_plain(_t(img))
@@ -146,9 +149,15 @@ def test_sample_patches_plain_stacked_planes(K, P):
 @pytest.mark.parametrize("shape,L", [
     ((61, 93), 3), ((61, 93), 4), ((61, 93), 5),
     ((13, 40), 5),       # 13 → 6 → 3 → 1 → 0 rows: the deepest level empty
-    ((61, 93), 1)])      # level 0 only
+    ((61, 93), 1),       # level 0 only
+    ((376, 1241), 4),    # KITTI: odd widths 1241, 155
+    ((3, 5), 2),         # 3×5 → 1×2: one row, no interior column
+    ((1, 7), 2),         # one row, then an empty level
+    ((40, 5), 3)])       # 40×5 → 20×2 → 10×1: widths 2 and 1
 def test_pyramid_levels_share_one_buffer_per_level(shape, L):
-    """pyramid_plain and build_with_gradients match the JAX pyramid; every
+    """pyramid_plain and build_with_gradients (on the CPU the plain whole
+    pyramid, ``_pyramid_flat_plain``) match the JAX pyramid, and every
+    level's gx and gy the Pallas ``gradients`` of that level; every
     level's image, gx and gy lie in one (3,h,w) buffer, the buffers one
     after another in one allocation, and level_planes hands B3 a view."""
     img = _img(40, *shape)
@@ -157,6 +166,9 @@ def test_pyramid_levels_share_one_buffer_per_level(shape, L):
     levels, gxs, gys = pyramid.build_with_gradients(_t(img), L)
     assert len(plain) == len(levels) == L
     assert torch.equal(levels[0], _t(img))
+    assert torch.equal(pyramid_kernel._pyramid_flat_plain(_t(img), L),
+                       torch.cat([torch.stack([a, b, c]).flatten()
+                                  for a, b, c in zip(levels, gxs, gys)]))
     storage = levels[0].untyped_storage().data_ptr()
     for lv in range(L):
         assert levels[lv].shape == jl[lv].shape
@@ -172,6 +184,10 @@ def test_pyramid_levels_share_one_buffer_per_level(shape, L):
             assert t.untyped_storage().data_ptr() == storage
         if levels[lv].numel() == 0:
             continue
+        # the same differences of the same level: exact
+        for ours, ref in zip((gxs[lv], gys[lv]), pallas_pyr.gradients(
+                jnp.asarray(levels[lv].numpy()), interpret=INTERPRET)):
+            np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
         planes = pyramid.level_planes(levels[lv], gxs[lv], gys[lv])
         assert planes.data_ptr() == levels[lv].data_ptr()   # a view
         assert torch.equal(planes, torch.stack([levels[lv], gxs[lv],
@@ -381,8 +397,8 @@ def test_cuda_pyramid_exact(cuda_device, shape, L, launches):
 @pytest.mark.cuda
 @pytest.mark.parametrize("L", [4, 5])
 def test_cuda_build_with_gradients_one_b1_launch(cuda_device, L):
-    """One B1 launch per pyramid, one B2 launch per level, nothing else (no
-    copy of level 0) in a profiler trace; every map exact."""
+    """One B1 launch and one B2 launch per pyramid, nothing else (no copy
+    of level 0) in a profiler trace; every map exact."""
     from torch.profiler import ProfilerActivity, profile
     img = _t(_img(17, 480, 752), cuda_device)
     pyramid.build_with_gradients(img, L)            # build, warm up
@@ -393,16 +409,76 @@ def test_cuda_build_with_gradients_one_b1_launch(cuda_device, L):
         levels, gxs, gys = pyramid.build_with_gradients(img, L)
         torch.cuda.synchronize()
     assert pyramid_kernel.LAUNCHES["halfsample"] == before["halfsample"] + 1
-    assert pyramid_kernel.LAUNCHES["gradients"] == before["gradients"] + L
+    assert pyramid_kernel.LAUNCHES["gradients"] == before["gradients"] + 1
     names = [e.name for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert len(names) == L + 1, names
+    assert len(names) == 2, names
     assert sum("pyramid_levels_kernel" in n for n in names) == 1, names
-    assert sum("gradients_kernel" in n for n in names) == L, names
+    assert sum("gradients_levels_kernel" in n for n in names) == 1, names
     for lv, ref in enumerate(pyramid_kernel.pyramid_plain(img, L)):
         assert torch.equal(levels[lv], ref)
         pgx, pgy = pyramid_kernel.gradients_plain(ref)
         assert torch.equal(gxs[lv], pgx) and torch.equal(gys[lv], pgy)
+
+
+# B2 over whole pyramids: (frame, levels). chip_smoke.py phase 2's three,
+# odd sizes with an empty deepest level (61×93, 8 levels: 1×2 then 0×1;
+# 13×40, 5 levels: 0 rows at level 4), one row (3×5: 1×2 at level 1; 1×7),
+# levels of width 2 and 1 (40×5 → 20×2 → 10×1) and of height 2 and 1
+# (5×40 → 2×20 → 1×10)
+CUDA_GRADIENT_PYRAMIDS = [((480, 752), 4), ((480, 752), 5), ((376, 1241), 4),
+                          ((61, 93), 8), ((13, 40), 5), ((3, 5), 2),
+                          ((1, 7), 1), ((40, 5), 3), ((5, 40), 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("shape,L", CUDA_GRADIENT_PYRAMIDS)
+def test_cuda_pyramid_gradients_exact(cuda_device, shape, L, B):
+    """One B2 launch writes every level's gx and gy of B pyramids, each
+    bit for bit ``gradients_plain`` of its level (zero on the border rows
+    and columns, everywhere on a level of width or height ≤ 2); each
+    problem of the batch equals its one-problem launch."""
+    imgs = _t(np.stack([_img(60 + b, *shape) for b in range(B)]),
+              cuda_device)
+    frames = imgs if B > 1 else imgs[0]
+    before = pyramid_kernel.LAUNCHES["gradients"]
+    flat = pyramid_kernel.pyramid_op(frames, L)
+    torch.cuda.synchronize()
+    assert pyramid_kernel.LAUNCHES["gradients"] == before + 1
+    bufs = pyramid_kernel.level_views(flat.reshape(B, -1), *shape, L)
+    for b in range(B):
+        for lv, ref in enumerate(pyramid_kernel.pyramid_plain(imgs[b], L)):
+            assert torch.equal(bufs[lv][b, 0], ref)
+            pgx, pgy = pyramid_kernel.gradients_plain(ref)
+            assert torch.equal(bufs[lv][b, 1], pgx), (b, lv)
+            assert torch.equal(bufs[lv][b, 2], pgy), (b, lv)
+        if B > 1:
+            assert torch.equal(flat[b], pyramid_kernel.pyramid_op(imgs[b], L))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("shape", [(120, 188), (94, 310), (3, 5), (9, 2)])
+def test_cuda_gradients_one_level_exact(cuda_device, shape, B):
+    """``svo::gradients``, the one-level path of B2 (the loop thumbnails:
+    120×188 from 752×480, 94×310 from KITTI), one launch for B images,
+    each bit for bit ``gradients_plain`` and its one-image launch; also
+    from an input 4 bytes past a 16-byte boundary (the scalar path)."""
+    imgs = _t(np.stack([_img(80 + b, *shape) for b in range(B)]),
+              cuda_device)
+    before = pyramid_kernel.LAUNCHES["gradients"]
+    out = pyramid_kernel.gradients_op(imgs)
+    torch.cuda.synchronize()
+    assert pyramid_kernel.LAUNCHES["gradients"] == before + 1
+    pgx, pgy = pyramid_kernel.gradients_plain(imgs)
+    assert torch.equal(out[:, 0], pgx) and torch.equal(out[:, 1], pgy)
+    for b in range(B):
+        assert torch.equal(out[b], pyramid_kernel.gradients_op(imgs[b]))
+    shifted = torch.zeros(imgs.numel() + 1, device=cuda_device)[1:]
+    shifted = shifted.view(imgs.shape).copy_(imgs)
+    assert shifted.data_ptr() % 16 == 4
+    assert torch.equal(pyramid_kernel.gradients_op(shifted), out)
 
 
 @pytest.mark.cuda
