@@ -118,6 +118,11 @@ def _local_rank(rank: int, n: int, init_method: str, out_dir: str,
     torch.set_num_threads(1)
     initialize_multihost(init_method, n, rank, device="cpu")
     try:
+        # every rank has joined the group before any can leave it: a rank
+        # whose fn returns at once would otherwise tear its side down while
+        # a slower rank is still connecting, and that rank fails with gloo's
+        # "Connection closed by peer" in place of its own result or error
+        dist.barrier()
         result = fn(rank, n, *args)
         torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
