@@ -38,9 +38,10 @@ Phases, one result line each, in order:
      loop call; or the run fails);
   3. main path: SvoConfig() as shipped (window BA on) over the 100-frame
      synthetic arc sequence (752×480, dt 0.08, seed 0) rendered on the
-     card, through StereoSvo(cfg, device="cuda").new_image, which replays
-     the step's CUDA graphs on every frame after the bootstrap, keyframe
-     frames included (engine/graphed.py; phases 4-7b, 9 and 10 too); ATE
+     card, through StereoSvo(cfg, device="cuda").new_image, which
+     launches the step's frame graph once a frame, the bootstrap and
+     keyframe frames included, its branches conditional nodes on the
+     device (engine/graphed.py; phases 4-7b, 9, 10, 13 and 14 too); ATE
      and tracking gates, BA calls and acceptances, per-frame time;
   4. kitti_config() as shipped (epipolar search on) over 100 frames of the
      road scene on the kitti trajectory at 1241×376, dt 0.08, seed 0,
@@ -77,8 +78,8 @@ Phases, one result line each, in order:
      (graphed.make_graphed_batched_step: each graph captured once for the
      whole batch, its phases vmapped over one stacked state, B1-B4 with
      the batch as their problem axis); gates ATE and tracking per
-     sequence, one host sync per batched frame after the first, graph B
-     replayed once on each of those, each sequence's keyframes equal and
+     sequence, no host sync on any batched frame, body B run once on
+     each batched frame after the first, each sequence's keyframes equal and
      positions within BATCH_POS_TOL_M over the first BATCH_POS_FRAMES
      frames of its single graphed run (whose sequence 0 repeats phase 3's
      first 25 poses bit for bit), each batched graph's kernel nodes
@@ -95,15 +96,16 @@ Phases, one result line each, in order:
      out (zeros), as tests/test_engine.py sets it up; gates tracking_ok
      false exactly on those frames and true from the next real frame on,
      finite poses, the keyframe frames equal to the JAX CPU reference, tail
-     error and ATE within BLACKOUT_TOL_M of it, one host sync on every
-     tracked frame (the failed ones included), and the rotated
-     relocalisation variants computed on each frame after a failed one;
+     error and ATE within BLACKOUT_TOL_M of it, no host sync on any
+     frame (the failed ones included), and the rotated relocalisation
+     variants computed on each frame after a failed one;
   10. the command-line app in-process: cli.main(--dataset synthetic
      --frames 60 --loop-closure --metrics-out ... --out ...) on the card,
      writing under build/; gates the summary's keys, ATE and tracking, one
      TUM line per frame that load_tum reads back (stamps i*0.1, ATE of the
-     file's positions equal to the summary's), one host sync per frame
-     inside the frame loop; then checkpoint and resume: 30 frames of phase
+     file's positions equal to the summary's), no host sync inside any
+     new_image call of the frame loop; then checkpoint and resume: 30
+     frames of phase
      3's sequence, utils/checkpoint.save, load into a fresh StereoSvo on
      the card, 30 more frames, whose poses must equal phase 3's bit for
      bit; reports the milliseconds of save and load;
@@ -118,18 +120,21 @@ Phases, one result line each, in order:
      no multi-rank NCCL run is made here (the multi-rank check is the gloo
      CPU dry run of tests/test_torch_parallel.py).
   12. graphed against eager: phase 3's frames through the eager step
-     (engine/step.make_step) with phase 3's accounting; gates the two
-     trajectories and every FrameOut field bit for bit equal over all 100
-     frames, keyframe frames included (else names the first frame and
-     field that differ); reports frame ms median, p90, tracked-frame and
-     keyframe-frame medians of both, host CUDA launches (kernels, graph
-     launches, copies) and device ms of one tracked frame and one keyframe
-     frame of each under torch.profiler (the frame before it in the
-     profiler's warm-up step), whose device records of each hand-written
-     kernel must equal the launch counters' gain on it, and a graphed
-     keyframe frame at most KF_FRAME_MAX_HOST_LAUNCHES host launches; the
-     nodes of each graph (the kernel nodes by the function's name, read
-     through libcuda; K_loop from phase 7's step), graph P's of phases 3-5
+     (engine/step.make_step, one host sync on every frame after the
+     bootstrap) with phase 3's accounting; gates the two trajectories and
+     every FrameOut field bit for bit equal over all 100 frames, keyframe
+     frames included (else names the first frame and field that differ);
+     reports frame ms median, p90, tracked-frame and keyframe-frame
+     medians of both, host CUDA launches (kernels, graph launches, copies)
+     and device ms of the bootstrap frame, one tracked frame and one
+     keyframe frame of each under torch.profiler (the frame before it, or
+     another step's bootstrap, in the profiler's warm-up step), whose
+     device records of each hand-written kernel must equal the launch
+     counters' gain on it, and a graphed keyframe frame and the graphed
+     bootstrap at most KF_FRAME_MAX_HOST_LAUNCHES host launches; the
+     nodes of each body (the kernel nodes by the function's name, read
+     through libcuda; K_loop from phase 7's step) and of the frame graph
+     F, graph P's of phases 3-5
      (SvoConfig(), kitti_config(), stress_config(): 2 kernel nodes, one B1
      and one B2, or the run fails), capture seconds and
      graph pool MB, and the device busy share of a replayed tracked frame
@@ -145,7 +150,7 @@ Phases, one result line each, in order:
      deterministic scenes at both sizes the keyframe frames equal to the
      JAX CPU reference (PHASE13_REF) and ATE within LOOP_TOL_M of it (the
      perturbed frames' noise comes from a CUDA generator: gates only); B1
-     and B2 once a frame, one host sync a tracked frame; reports per run
+     and B2 once a frame, no host sync on any frame; reports per run
      tracking, ATE, keyframe frames, frame ms median and p90 (first frame
      apart), launches a frame of B1-B4;
   14. the long horizon of tests/test_mem_retention.py:78: its rig (8-slot
@@ -159,6 +164,22 @@ Phases, one result line each, in order:
      PHASE14_REF and the tail errors within LOOP_TOL_M of it; reports
      tracked and keyframe frames' ms apart, refine_trajectory's wall ms and
      kernel launches.
+  15. no host read between frames: phase 3's 100 frames through
+     run_sequence_scan, and phase 8's batched-8 frames through
+     run_sequence_batched, each under CUDA sync debug mode "error" from
+     the first frame, the bootstrap included, to the last (a sync
+     raises); gates the poses and flags bit for bit phase 12's eager run
+     (batched: the eager batched step over the same frames) and each
+     body's run counter (read once, after the run) against what the
+     flags imply (one bootstrap, K and K_loop the keyframe frames after
+     it, A_fail the frames after a failed one, B every other frame);
+     reports frame ms from CUDA events (median, p90, the bootstrap apart),
+     fps over the run, and, over SCAN_PROFILE_FRAMES steady frames of a
+     fresh step in a process of its own, each graph launch timed by CUDA
+     events and then under torch.profiler, the device's busy share and
+     its idle time inside graph windows and between them (steady_split).
+     Phase 12's profiled graphed frames also run in a process of their
+     own (child).
 Phase 2 also holds B2, B3 (K=3 and K=1) and B4 at the keyframe thumbnail
 (120x188, N=192, P=4, the centres a keyframe's features give it) that
 phase 7's edge measurements use.
@@ -169,14 +190,18 @@ and B2, B3 and B4 over LOOP_EDGES=8 edges at the thumbnail (one pass of
 measure_edges); each problem bit for bit its one-problem launch, the batch
 against the plain problem-axis version (B4 within 1e-4 of the largest
 entry), bound and library call for the whole batch.
-Each of phases 3-11 and 13-14 (each run of phase 13) zeroes the launch
+Each of phases 3-11 and 13-15 (each run of phase 13) zeroes the launch
 counters just before its run, reads them just after, and fails unless
-every kernel launched; it counts host
+every kernel launched; a graphed step's frames launch their kernels
+inside the frame graph, whose bodies count their runs on the device, and
+the counters take each body's kernel nodes times its runs when they are
+zeroed or read (graphed.settle, outside the frames). Each counts host
 syncs on every frame of the run (CUDA sync debug mode) and fails unless
-the bootstrap frame has none and every other frame, keyframe frames with
-window BA, online loop closure and epipolar recoveries included, has
-exactly one (phase 8: per batched frame; phases 10 and 11 count them
-inside the frame loop only).
+no frame has one, the bootstrap, keyframe frames with window BA, online
+loop closure and epipolar recoveries included (phase 8: per batched
+frame; phase 10 counts them inside the frame loop only; phase 15 raises
+on the first); phase 12's eager run keeps one on every frame after the
+bootstrap.
 Then phase2_rows (every kernel row with its launches per frame), the
 kernels JSON line (each kernel's main-path row, launches from phase 3),
 the nvidia-smi line, and last
@@ -312,10 +337,15 @@ PHASE14_REF = dict(tracking_ok=1.0, keyframes=112, wraps=14.0,
                    organic_m=0.011507759802043438,
                    offline_edges=8, tail_before_m=0.06774022430181503,
                    tail_after_m=0.028808007016777992)
-# a graphed keyframe frame replays K between A and B: graph launches,
-# the image copies, the sync's read and the FrameOut's clones, no eager
-# kf_phase (~2,700 launches)
+# a graphed frame, a keyframe frame or the bootstrap, is one launch of the
+# frame graph: the image copies, the launch and the FrameOut's clones, no
+# eager kf_phase (~2,700 launches) or bootstrap (thousands)
 KF_FRAME_MAX_HOST_LAUNCHES = 64
+# the argument that runs a child process (child_main)
+CHILD_FLAG = "--profile-graphed-frames"
+# phase 15: the steady frames in torch.profiler's window, from frame
+# SCAN_PROFILE_AT of phase 3's sequence (phase 8's: its last ones)
+SCAN_PROFILE_AT, SCAN_PROFILE_FRAMES = 40, 20
 N_TIMED = 60                               # event-pair timing repetitions
 N_BACK = 200                               # back-to-back calls (device_us,
                                            # host_us)
@@ -1062,6 +1092,8 @@ def prof_launches(fn, warmup=None):
     out["total"] = sum(out.values())
     out["device_ms"] = sum(getattr(e, "self_device_time_total", 0.0)
                            for e in on_device) / 1e3
+    # every record of the device: kernels, copies, memsets
+    out["device_records"] = sum(e.count for e in on_device)
     out["by_kernel"] = dict.fromkeys(graphed.KERNELS, 0)
     for e in on_device:
         key = graphed.counter_of(e.key)
@@ -1100,12 +1132,14 @@ class EagerSvo:
 
 
 def drive(cfg, lefts, rights, gt, counters, before_frame=None,
-          make_svo=None):
+          make_svo=None, want=(0, 0)):
     """One run of StereoSvo (or ``make_svo(cfg)``) over the frames with
     every launch counter set to 0 just before and read just after: gates'
     inputs and timings, and the StereoSvo. ``before_frame(i, svo)`` runs
     before frame i, outside the frame's timing and sync count. Host syncs
-    are counted on every frame under CUDA sync debug mode."""
+    are counted on every frame under CUDA sync debug mode and must be
+    ``want`` (the bootstrap frame's, every other frame's): none on any
+    frame of a graphed step."""
     import numpy as np
     import torch
     from stereo_svo_tpu_torch.engine.runner import StereoSvo
@@ -1116,7 +1150,7 @@ def drive(cfg, lefts, rights, gt, counters, before_frame=None,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counters(counters)
-    events, syncs, sync_sites = [], [], {}
+    events, per_frame, sync_sites = [], [], {}
     t_wall = time.perf_counter()
     for i in range(n):
         if before_frame is not None:
@@ -1131,12 +1165,12 @@ def drive(cfg, lefts, rights, gt, counters, before_frame=None,
 
         _, count, sites = count_syncs(frame)
         events.append((a, b))
-        syncs.append(count)
+        per_frame.append(count)
         for key, c in sites.items():
             sync_sites[key] = sync_sites.get(key, 0) + c
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t_wall
-    launches = {k: v for counts in counters for k, v in counts.items()}
+    launches = read_counters(counters, "on this path")
     frame_ms = [a.elapsed_time(b) for a, b in events]
     traj, metrics = svo.trajectory(), svo.metrics()
     require(traj.shape == (n, 3, 4) and np.isfinite(traj).all(),
@@ -1169,15 +1203,14 @@ def drive(cfg, lefts, rights, gt, counters, before_frame=None,
         "launches_per_frame": {k: v / n for k, v in launches.items()},
         "max_memory_allocated_mb":
             torch.cuda.max_memory_allocated() / 2**20,
-        "host_syncs_per_frame": {str(c): syncs.count(c)
-                                 for c in sorted(set(syncs))},
+        "host_syncs_per_frame": {str(c): per_frame.count(c)
+                                 for c in sorted(set(per_frame))},
         "sync_sites": sync_sites,
     }
-    missing = [k for k, v in launches.items() if v <= 0]
-    require(not missing, f"kernels never launched on this path: {missing}")
-    require(syncs[0] == 0 and all(c == 1 for c in syncs[1:]),
-            f"host syncs per frame {syncs} (want 0 on the bootstrap, 1 on "
-            f"every tracked frame): {sync_sites}")
+    require(per_frame[0] == want[0] and all(c == want[1]
+                                            for c in per_frame[1:]),
+            f"host syncs per frame {per_frame} (want {want[0]} on the "
+            f"bootstrap, {want[1]} on every other frame): {sync_sites}")
     return out, frame_ms, metrics, svo
 
 
@@ -1320,15 +1353,15 @@ def refine_run(cfg, svo, gt, counters):
     from stereo_svo_tpu_torch.eval import ate
 
     traj, gt_np = svo.trajectory(), gt.cpu().numpy()
-    before = {k: v for c in counters for k, v in c.items()}
+    before = counted(counters)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     refined, _, n_edges = loop_closure.refine_trajectory(cfg, svo.state, traj)
     host_ms = (time.perf_counter() - t0) * 1e3
     require(np.isfinite(refined).all(), "refine_trajectory: not finite")
+    after = counted(counters)
     return {"offline_edges": n_edges, "host_ms": host_ms,
-            "kernel_launches": {k: v - before[k] for c in counters
-                                for k, v in c.items()},
+            "kernel_launches": {k: after[k] - before[k] for k in after},
             "tail_err_m": tail_err(refined, gt_np),
             "ate_m": ate.ate_rmse(ate.positions(refined),
                                   ate.positions(gt_np))}
@@ -1385,7 +1418,6 @@ def batched_run(cfg, counters, device, traj3):
             syncs.append(n)
             for key, v in where.items():
                 sites[key] = sites.get(key, 0) + v
-            made["flags"] = out[2]
             return out
 
     def counted(c, B, dev):
@@ -1403,7 +1435,7 @@ def batched_run(cfg, counters, device, traj3):
     finally:
         runner.make_graphed_batched_step = make
     wall_s, frames_s = t_end - t0, t_end - made["first_frame"]
-    launches = {k: v for counts in counters for k, v in counts.items()}
+    launches = read_counters(counters, "in the batch")
     bstep = made["bstep"]
     replays = dict(bstep.replays)
     traj = outs.T_wc.cpu().numpy()
@@ -1417,10 +1449,9 @@ def batched_run(cfg, counters, device, traj3):
     ref_traj, ref_kf = [], []
     for b in range(BATCH):
         single.load(init_state(cfg, device))
-        flags, poses, kfs = None, [], []
+        poses, kfs = [], []
         for t in range(BATCH_FRAMES):
-            _, o, flags = single(single.state, lefts[b, t], rights[b, t],
-                                 flags)
+            _, o = single(single.state, lefts[b, t], rights[b, t])
             poses.append(o.T_wc.clone())
             kfs.append(o.kf_inserted.clone())
         ref_traj.append(torch.stack(poses).cpu().numpy())
@@ -1433,8 +1464,10 @@ def batched_run(cfg, counters, device, traj3):
         for b in range(BATCH)]
     kf_equal = [bool(np.array_equal(kf[b], ref_kf[b])) for b in range(BATCH)]
     single_nodes = single.nodes
+    # the phases' bodies (not the flags body's bookkeeping or the frame
+    # graph's own set nodes)
     ratio = {name: bstep.nodes[name]["kernel"] / single_nodes[name]["kernel"]
-             for name in single_nodes}
+             for name in single_nodes if name not in ("flags", "F")}
     # what the batched graphs hold beyond the single step's: kernel nodes
     # by CUDA function, the largest differences first
     node_diff = {}
@@ -1446,8 +1479,7 @@ def batched_run(cfg, counters, device, traj3):
                                  key=lambda x: -abs(x[0]))[:15]
 
     def more():
-        made["flags"] = bstep(bstep.state, lefts[:, -1], rights[:, -1],
-                              made["flags"])[2]
+        bstep(bstep.state, lefts[:, -1], rights[:, -1])
     steady = []
     for _ in range(BATCH_STEADY_FRAMES):
         torch.cuda.synchronize()
@@ -1502,11 +1534,9 @@ def batched_run(cfg, counters, device, traj3):
            "stress_config_batched": stress8,
            "single_seq0_equals_phase3": bool(np.array_equal(
                ref_traj[0], traj3[:BATCH_FRAMES]))}
-    missing = [k for k, v in launches.items() if v <= 0]
-    require(not missing, f"kernels never launched in the batch: {missing}")
-    require(syncs[0] == 0 and all(c == 1 for c in syncs[1:]),
-            f"host syncs per batched frame {syncs} (want 0 on the "
-            f"bootstrap, 1 after): {sites}")
+    require(all(c == 0 for c in syncs),
+            f"host syncs per batched frame {syncs} (want 0 on every "
+            f"batched frame): {sites}")
     require(replays["B"] == BATCH_FRAMES - 1,
             f"graph B replayed {replays['B']} times, want once a batched "
             f"frame after the bootstrap")
@@ -1526,7 +1556,7 @@ def batched_run(cfg, counters, device, traj3):
                 f"node for the batch")
     require(out["single_seq0_equals_phase3"],
             "the single run of sequence 0 differs from phase 3's frames")
-    return out, states
+    return out, states, (lefts, rights)
 
 
 def graph_p_nodes(svo) -> dict:
@@ -1536,7 +1566,19 @@ def graph_p_nodes(svo) -> dict:
             "kernel_nodes": svo._step.kernel_nodes["P"]}
 
 
+def counted(counters) -> dict:
+    """Every launch counter, after adding the graphed steps' body runs
+    (graphed.settle: a step's frames launch its kernels inside one graph,
+    whose bodies count their runs on the device; one read a step)."""
+    from stereo_svo_tpu_torch.engine import graphed
+    graphed.settle()
+    return {k: v for counts in counters for k, v in counts.items()}
+
+
 def zero_counters(counters) -> None:
+    """Every launch counter to 0, the graphed steps' body runs so far
+    settled first (they count for nothing)."""
+    counted(counters)
     for counts in counters:
         for k in counts:
             counts[k] = 0
@@ -1545,7 +1587,7 @@ def zero_counters(counters) -> None:
 def read_counters(counters, what: str, needs=None) -> dict:
     """The launch counts since zero_counters; every kernel (or those named
     in ``needs``) must have launched on the path ``what``."""
-    launches = {k: v for counts in counters for k, v in counts.items()}
+    launches = counted(counters)
     missing = [k for k, v in launches.items()
                if v <= 0 and (needs is None or k in needs)]
     require(not missing, f"kernels never launched {what}: {missing}")
@@ -1654,8 +1696,9 @@ def cli_run(counters, device):
            "sync_sites": sites}
     require(summary["frames"] == CLI_FRAMES and len(syncs) == CLI_FRAMES,
             f"{summary['frames']} frames, {len(syncs)} new_image calls")
-    require(syncs[0] == 0 and all(c == 1 for c in syncs[1:]),
-            f"CLI host syncs per frame {syncs}: {sites}")
+    require(all(c == 0 for c in syncs),
+            f"CLI host syncs per frame {syncs} (want 0 on every frame): "
+            f"{sites}")
     require(summary["ate_rmse_m"] <= ATE_GATE_M,
             f"CLI ATE {summary['ate_rmse_m']} m above {ATE_GATE_M}")
     require(summary["tracking_ok_frac"] >= TRACK_GATE,
@@ -1847,23 +1890,101 @@ def global_map_run(cfg, states, counters):
     return out
 
 
+def _matched(tries) -> bool:
+    """The device's records against the counts of the last try: each
+    hand-written kernel's records against its counter's gain; for the
+    frame graph also every record of the device (kernels, copies,
+    memsets) against the nodes of the bodies that ran (their run
+    counters' gain), the set nodes and the host's own launches and
+    copies."""
+    if not tries:
+        return False
+    p = tries[-1]
+    return p["by_kernel"] == p["counted"] and (
+        "records_expected" not in p
+        or p["device_records"] == p["records_expected"])
+
+
+def profile_frames(key, make, cfg, lefts, rights, counters, kinds) -> dict:
+    """Phase 12's profiled frames of one step (``make``: StereoSvo or
+    EagerSvo) over phase 3's frames: for each kind of frame ({kind: frame
+    indices}), the first of up to three frames whose device records
+    equal the counts (_matched), each after its previous frame in the
+    profiler's warm-up step (frame 0: another step's bootstrap). Fails
+    when a kind never matches."""
+    import torch
+    candidates = sorted((t, kind) for kind, ts in kinds.items() for t in ts)
+    profiled = {}
+    svo, done = make(cfg, device="cuda"), 0
+    spare = make(cfg, device="cuda")    # the bootstrap's warm-up
+    tries = {kind: [] for kind in kinds}
+    for t, kind in candidates:
+        if all(_matched(v) or len(v) == 3 for v in tries.values()):
+            break
+        if (0 < t < done + 1 or _matched(tries[kind])
+                or len(tries[kind]) == 3):
+            continue
+        for i in range(done, t - 1):
+            svo.new_image(lefts[i], rights[i])
+        torch.cuda.synchronize()
+
+        graph_step = svo._step if key == "graphed" else None
+        runs0 = {}
+
+        def frame(t=t, svo=svo):
+            zero_counters(counters)
+            if graph_step:      # a read (no kernel) before the frame
+                runs0.update(graph_step.replays)
+            svo.new_image(lefts[t], rights[t])
+        # the frame before, or another step's bootstrap before frame 0
+        w, before = (t - 1, svo) if t else (0, spare)
+        prof = prof_launches(frame, warmup=lambda w=w, svo=before:
+                             svo.new_image(lefts[w], rights[w]))
+        done = t + 1
+        if graph_step:
+            runs1 = graph_step.replays
+            prof["body_runs"] = {g: runs1[g] - runs0[g]
+                                 for g in graph_step.graphs}
+            nodes = graph_step.nodes
+            prof["records_expected"] = (
+                prof["kernels"] + prof["copies"] + nodes["F"]["kernel"]
+                + sum(n * (nodes[g]["kernel"] + nodes[g]["memcpy"]
+                           + nodes[g]["memset"])
+                      for g, n in prof["body_runs"].items()))
+        # the bootstrap aligns nothing: no B4
+        prof.update(frame=t, counted=read_counters(
+            counters, f"on the {key} frame {t}", needs=None if t else
+            ("halfsample", "gradients", "sample_patches")))
+        tries[kind].append(prof)
+    for kind, v in tries.items():
+        require(_matched(v),
+                f"{key} {kind} frames: the device's records of the "
+                f"kernels never equalled the counts: "
+                f"{[(p['frame'], p['device_records'], p.get('records_expected'), p['by_kernel'], p['counted']) for p in v]}")
+        profiled[kind] = dict(v[-1], frames_tried=len(v))
+    del spare
+    return profiled
+
+
 def graphed_vs_eager(cfg, lefts, rights, gt, counters, svo3, phase3,
                      loop_step):
     """Phase 12: phase 3's frames through the eager step with phase 3's
-    accounting (drive()), against phase 3's graphed run; then a tracked
-    frame and a keyframe frame of each under torch.profiler, from runs of
-    the frames before them. On those frames the device's records of each
-    hand-written kernel must equal what the launch counters gained: for
-    the graphed step, whose counters add each replayed graph's kernel
-    nodes, this measures that a replay runs the kernels its counts claim.
-    ``loop_step``: phase 7's graphed step, whose K_loop nodes are
-    reported beside phase 3's graphs."""
+    accounting (drive(), one host sync on every frame after the
+    bootstrap), against phase 3's graphed run; then the bootstrap frame, a
+    tracked frame and a keyframe frame of each under torch.profiler, from
+    runs of the frames before them (the bootstrap: after a bootstrap of
+    another step of the same kind in the profiler's warm-up step). On
+    those frames the device's records of each hand-written kernel must
+    equal what the launch counters gained: for the graphed step, whose
+    counters add each body's kernel nodes times its runs, this measures
+    that a frame runs the kernels its counts claim. ``loop_step``: phase
+    7's graphed step, whose K_loop nodes are reported beside phase 3's
+    graphs. Returns (the result, the eager run's trajectory and
+    metrics)."""
     import numpy as np
-    import torch
-    from stereo_svo_tpu_torch.engine.runner import StereoSvo
 
     eager, _, _, esvo = drive(cfg, lefts, rights, gt, counters,
-                              make_svo=EagerSvo)
+                              make_svo=EagerSvo, want=(0, 1))
     g_traj, e_traj = svo3.trajectory(), esvo.trajectory()
     g_m, e_m = svo3.metrics(), esvo.metrics()
     first_diff = None
@@ -1880,43 +2001,21 @@ def graphed_vs_eager(cfg, lefts, rights, gt, counters, svo3, phase3,
     # each kind the first of up to three frames whose records of every
     # kernel equal the counters' gain is kept
     kf = g_m["kf_inserted"]
-    kinds = {"tracked": [i for i in range(6, len(kf)) if not kf[i]],
+    kinds = {"bootstrap": [0],
+             "tracked": [i for i in range(6, len(kf)) if not kf[i]],
              "keyframe": [i for i in range(6, len(kf)) if kf[i]]}
     require(kinds["keyframe"], "phase 3 has no keyframe frame from frame 6")
-    candidates = sorted((t, kind) for kind, ts in kinds.items() for t in ts)
 
-    def matched(tries):
-        return bool(tries) and tries[-1]["by_kernel"] == tries[-1]["counted"]
-
+    # the graphed frames are profiled in a process of their own: in this
+    # one, after the earlier phases' profiles, the profiler was seen to
+    # drop records inside the frame graph's bodies (PERF.md §7)
     profiled = {}
-    for key, make in (("graphed", StereoSvo), ("eager", EagerSvo)):
-        svo, done = make(cfg, device="cuda"), 0
-        tries = {kind: [] for kind in kinds}
-        for t, kind in candidates:
-            if all(matched(v) or len(v) == 3 for v in tries.values()):
-                break
-            if t - 1 < done or matched(tries[kind]) or len(tries[kind]) == 3:
-                continue
-            for i in range(done, t - 1):
-                svo.new_image(lefts[i], rights[i])
-            torch.cuda.synchronize()
-
-            def frame(t=t, svo=svo):
-                zero_counters(counters)
-                svo.new_image(lefts[t], rights[t])
-            prof = prof_launches(frame, warmup=lambda t=t, svo=svo:
-                                 svo.new_image(lefts[t - 1], rights[t - 1]))
-            done = t + 1
-            prof.update(frame=t, counted=read_counters(
-                counters, f"on the {key} frame {t}"))
-            tries[kind].append(prof)
-        for kind, v in tries.items():
-            require(matched(v),
-                    f"{key} {kind} frames: the device's records of the "
-                    f"kernels never equalled the counters' gain: "
-                    f"{[(p['frame'], p['by_kernel'], p['counted']) for p in v]}")
-            profiled.setdefault(kind, {})[key] = dict(v[-1],
-                                                      frames_tried=len(v))
+    for key, by_kind in (
+            ("graphed", child({"task": "profile_frames", "kinds": kinds})),
+            ("eager", profile_frames("eager", EagerSvo, cfg, lefts, rights,
+                                     counters, kinds))):
+        for kind, prof in by_kind.items():
+            profiled.setdefault(kind, {})[key] = prof
     step = svo3._step
     keys = ("frame_ms_median", "frame_ms_p90", "track_frame_ms_median",
             "kf_frame_ms_median", "fps", "first_frame_ms", "launches",
@@ -1936,7 +2035,8 @@ def graphed_vs_eager(cfg, lefts, rights, gt, counters, svo3, phase3,
            "graph_pool_mb": step.pool_bytes / 2**20,
            "loop_capture_seconds": loop_step.capture_seconds,
            "loop_graph_pool_mb": loop_step.pool_bytes / 2**20}
-    for kind, ms in (("tracked", "track_frame_ms_median"),
+    for kind, ms in (("bootstrap", "first_frame_ms"),
+                     ("tracked", "track_frame_ms_median"),
                      ("keyframe", "kf_frame_ms_median")):
         for key, run in (("graphed", phase3), ("eager", eager)):
             out[f"device_busy_share_{key}_{kind}_frame"] = \
@@ -1949,12 +2049,14 @@ def graphed_vs_eager(cfg, lefts, rights, gt, counters, svo3, phase3,
               if k.startswith("device_busy") and k.endswith("tracked_frame")}
     require(all(0.0 < v <= 1.0 for v in shares.values()),
             f"device busy shares {shares}: not in (0, 1]")
-    kf_host = profiled["keyframe"]["graphed"]["total"]
-    require(kf_host <= KF_FRAME_MAX_HOST_LAUNCHES,
-            f"a graphed keyframe frame made {kf_host} host launches (kernels, "
-            f"graph launches, copies), more than "
-            f"{KF_FRAME_MAX_HOST_LAUNCHES}: kf_phase is not in graph K")
-    return out
+    for kind in ("keyframe", "bootstrap"):
+        host = profiled[kind]["graphed"]["total"]
+        require(host <= KF_FRAME_MAX_HOST_LAUNCHES,
+                f"a graphed {kind} frame made {host} host launches "
+                f"(kernels, graph launches, copies), more than "
+                f"{KF_FRAME_MAX_HOST_LAUNCHES}: the frame is not one launch "
+                f"of the frame graph")
+    return out, e_traj, e_m
 
 
 @contextlib.contextmanager
@@ -2155,13 +2257,13 @@ def long_horizon_run(cfg, counters, device):
                                        state.mem_T_wk.cpu().numpy(), D,
                                        LONG_DRIFT_AT)
     state_p = state._replace(mem_T_wk=torch.as_tensor(mem_p, device=device))
-    before = {k: v for c in counters for k, v in c.items()}
+    before = counted(counters)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     refined, _, n_edges = loop_closure.refine_trajectory(cfg, state_p, traj_p)
     refine_ms = (time.perf_counter() - t0) * 1e3
-    refine_launches = {k: v - before[k] for c in counters
-                       for k, v in c.items()}
+    after = counted(counters)
+    refine_launches = {k: after[k] - before[k] for k in after}
     tail = LONG_FRAMES - LONG_DRIFT_AT        # the frames the event moved
     track = [frame_ms[i] for i in range(1, LONG_FRAMES) if not kf[i]]
     kf_ms = [frame_ms[i] for i in range(1, LONG_FRAMES) if kf[i]]
@@ -2196,9 +2298,9 @@ def long_horizon_run(cfg, counters, device):
         "host_syncs_per_frame": {str(c): syncs.count(c)
                                  for c in sorted(set(syncs))},
         "sync_sites": sites}
-    require(syncs[0] == 0 and all(c == 1 for c in syncs[1:]),
+    require(all(c == 0 for c in syncs),
             f"phase 14: host syncs per frame {out['host_syncs_per_frame']} "
-            f"(want 0 on the bootstrap, 1 after): {sites}")
+            f"(want 0 on every frame): {sites}")
     one_per_pyramid(out, "phase 14")
     missing = [k for k in ("gradients", "sample_patches", "gn_accumulate")
                if refine_launches[k] <= 0]
@@ -2228,6 +2330,292 @@ def check_long_horizon(run):
         require(abs(run[key] - PHASE14_REF[key]) <= LOOP_TOL_M,
                 f"phase 14: {key} {run[key]}, reference "
                 f"{PHASE14_REF[key]}")
+
+
+def trace_busy(trace_path: str, frames: int) -> dict:
+    """The device's records in a torch.profiler Chrome trace (kernels,
+    copies, memsets): the time some record ran (busy, their union) and
+    the span from the first to the last, in ms per frame over ``frames``
+    frames."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    busy, start, end = 0.0, None, None
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                       if e.get("ph") == "X" and e.get("cat") in
+                       ("kernel", "gpu_memcpy", "gpu_memset")):
+        if start is None:
+            start = a
+        if end is None or a > end:
+            busy += b - a
+        elif b > end:
+            busy += b - end
+        end = b if end is None else max(end, b)
+    span = end - start if start is not None else 0.0
+    return {"busy_per_frame_ms": busy / 1e3 / frames,
+            "span_per_frame_ms": span / 1e3 / frames}
+
+
+def profile_window(run_frames, warmup, frames: int, path: str) -> dict:
+    """``run_frames()`` (``frames`` frames, no sync between them) under
+    torch.profiler, ``warmup()`` in its warm-up step; the trace written to
+    ``path`` and read by trace_busy."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: p.export_chrome_trace(path)) as p:
+        warmup()
+        torch.cuda.synchronize()
+        p.step()
+        run_frames()
+        torch.cuda.synchronize()
+        p.step()
+    return trace_busy(path, frames)
+
+
+def graph_windows(run_frames, frames: int) -> dict:
+    """``run_frames()`` (``frames`` frames, no sync between them) with each
+    graph launch — a torch graph's replay, a frame graph's launch — between
+    a CUDA-event pair, and the run between another: the run's span and the
+    launches' windows on the device's clock, per frame."""
+    import torch
+    from stereo_svo_tpu_torch.engine import graphed
+    pairs = []
+
+    def timed(orig):
+        def launch(*args, **kwargs):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = orig(*args, **kwargs)
+            b.record()
+            pairs.append((a, b))
+            return out
+        return launch
+
+    targets = [(torch.cuda.CUDAGraph, "replay")]
+    if hasattr(graphed, "_FrameGraph"):       # trees before it: none
+        targets.append((graphed._FrameGraph, "launch"))
+    origs = [getattr(c, name) for c, name in targets]
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    for (c, name), orig in zip(targets, origs):
+        setattr(c, name, timed(orig))
+    try:
+        a.record()
+        run_frames()
+        b.record()
+        torch.cuda.synchronize()
+    finally:
+        for (c, name), orig in zip(targets, origs):
+            setattr(c, name, orig)
+    span = a.elapsed_time(b)
+    window = sum(x.elapsed_time(y) for x, y in pairs)
+    return {"frames": frames, "graph_launches_per_frame": len(pairs) / frames,
+            "frame_ms": span / frames, "window_ms": window / frames}
+
+
+def steady_split(drive_to, warmup, run_frames, frames: int,
+                 trace_path: str) -> dict:
+    """The idle split of ``frames`` steady frames: ``drive_to()`` brings
+    the step to the frame before them (``warmup()``), ``run_frames()`` runs
+    them with no sync. Twice: unprofiled, each graph launch timed by CUDA
+    events (graph_windows: the frame's span and its graph windows), then
+    under torch.profiler (profile_window: the device's busy time — the
+    kernels' own durations; tracing stretches the idle time around the
+    bodies a conditional node launches). Per frame: frame ms, busy ms and
+    share, idle inside graph windows (windows less busy) and between them
+    (span less windows), and the traced run's span."""
+    import torch
+    drive_to()
+    warmup()
+    torch.cuda.synchronize()
+    timed = graph_windows(run_frames, frames)
+    drive_to()
+    traced = profile_window(run_frames, warmup, frames, trace_path)
+    busy = traced["busy_per_frame_ms"]
+    return dict(timed, busy_ms=busy,
+                busy_share=busy / timed["frame_ms"],
+                idle_inside_windows_ms=timed["window_ms"] - busy,
+                idle_between_windows_ms=timed["frame_ms"]
+                - timed["window_ms"],
+                traced_frame_ms=traced["span_per_frame_ms"])
+
+
+@contextlib.contextmanager
+def frames_without_sync(runner, maker: str, events: list, made: dict):
+    """While the block runs, ``runner.<maker>`` (looked up by the runner
+    at each call) makes the step it made wrapped: CUDA sync debug mode
+    "error" from its first frame on (a host sync raises), each frame
+    between a CUDA-event pair. The step is ``made["step"]``, the host
+    clock at its first frame ``made["t0"]``."""
+    import torch
+    make = getattr(runner, maker)
+
+    class NoSync:
+        def __init__(self, step):
+            self.step = made["step"] = step
+
+        def __getattr__(self, name):
+            return getattr(self.step, name)
+
+        def __call__(self, *args):
+            if not events:
+                torch.cuda.synchronize()
+                made["t0"] = time.perf_counter()
+                torch.cuda.set_sync_debug_mode("error")
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = self.step(*args)
+            b.record()
+            events.append((a, b))
+            return out
+
+    setattr(runner, maker, lambda *a: NoSync(make(*a)))
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        setattr(runner, maker, make)
+
+
+def runs_against_flags(runs: dict, ok, kf) -> dict:
+    """Each body's run counter against what the FrameOut flags (T,) — or
+    (B,T), the batch's conds over its sequences — imply; a mismatch
+    fails."""
+    import numpy as np
+    ok, kf = np.atleast_2d(ok), np.atleast_2d(kf)
+    T = ok.shape[1]
+    want = {"flags": T, "boot": 1, "B": T - 1,
+            "A_fail": int((~ok[:, :T - 1]).any(0).sum()),
+            "K+K_loop": int(kf[:, 1:].any(0).sum())}
+    got = {"flags": runs["flags"], "boot": runs["boot"], "B": runs["B"],
+           "A_fail": runs["A_fail"],
+           "K+K_loop": runs["K"] + runs["K_loop"]}
+    require(got == want and runs["A_ok"] + runs["A_fail"] == T - 1,
+            f"body runs {runs} against the flags: {got}, want {want}")
+    return got
+
+
+def scan_run(cfg, lefts, rights, counters, device, eager_traj,
+             eager_metrics):
+    """Phase 15, single: phase 3's frames through run_sequence_scan with
+    CUDA sync debug mode "error" from the first frame to the last (one
+    launch of the frame graph a frame; the images and the FrameOut copied
+    on the device), counters zeroed just before and read just after; the
+    poses and flags against phase 12's eager run bit for bit, each body's
+    run counter against the flags, frame ms from CUDA events, fps over the
+    run; then, in a process of its own, a fresh step's
+    SCAN_PROFILE_FRAMES steady frames timed and under torch.profiler
+    (steady_window)."""
+    import numpy as np
+    import torch
+    from stereo_svo_tpu_torch.engine import runner
+
+    events, made = [], {}
+    zero_counters(counters)
+    with frames_without_sync(runner, "make_graphed_step", events, made):
+        state, outs = runner.run_sequence_scan(cfg, lefts, rights,
+                                               device=device)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - made["t0"]
+    launches = read_counters(counters, "by run_sequence_scan")
+    step = made["step"]
+    T = lefts.shape[0]
+    frame_ms = [a.elapsed_time(b) for a, b in events]
+    traj = outs.T_wc.cpu().numpy()
+    ok = outs.tracking_ok.cpu().numpy()
+    kf = outs.kf_inserted.cpu().numpy()
+    runs = step.replays
+    require(np.array_equal(traj, eager_traj)
+            and np.array_equal(ok, eager_metrics["tracking_ok"])
+            and np.array_equal(kf, eager_metrics["kf_inserted"]),
+            "phase 15: run_sequence_scan's poses or flags differ from the "
+            "eager step's")
+    against = runs_against_flags(runs, ok, kf)
+    split = child({"task": "steady", "batch": 0})
+    steady = frame_ms[1:]
+    return {"config": "SvoConfig()", "frames": T,
+            "path": "engine/runner.run_sequence_scan",
+            "host_syncs": 0, "bit_for_bit_eager": True,
+            "body_runs": runs, "body_runs_against_flags": against,
+            "first_frame_ms": frame_ms[0],
+            "frame_ms_median": statistics.median(steady),
+            "frame_ms_p90": statistics.quantiles(steady, n=10)[8],
+            "track_frame_ms_median": statistics.median(
+                frame_ms[i] for i in range(1, T) if not kf[i]),
+            "kf_frame_ms_median": statistics.median(
+                [frame_ms[i] for i in range(1, T) if kf[i]] or [0.0]),
+            "fps_events": 1000.0 * len(steady) / sum(steady),
+            "fps_wall": T / wall_s, "wall_seconds": wall_s,
+            "capture_seconds": step.capture_seconds,
+            "launches": launches,
+            "launches_per_frame": {k: v / T for k, v in launches.items()},
+            "steady_window": split,
+            "frame_ms_all": frame_ms}
+
+
+def batched_scan_run(cfg, lefts, rights, counters, device):
+    """Phase 15, batched: phase 8's (B,T) frames through
+    run_sequence_batched with CUDA sync debug mode "error" from the first
+    batched frame to the last; the poses and flags against the eager
+    batched step (engine/step.make_batched_step) over the same frames bit
+    for bit, the body runs against the flags (the batch's conds), batched
+    frame ms from CUDA events, aggregate frames/s; then, in a process of
+    its own, SCAN_PROFILE_FRAMES steady batched frames (steady_window)."""
+    import numpy as np
+    import torch
+    from stereo_svo_tpu_torch.engine import runner
+    from stereo_svo_tpu_torch.engine import step as step_mod
+    from stereo_svo_tpu_torch.engine.state import init_states
+
+    B, T = lefts.shape[:2]
+    events, made = [], {}
+    zero_counters(counters)
+    with frames_without_sync(runner, "make_graphed_batched_step", events,
+                             made):
+        _, outs = runner.run_sequence_batched(cfg, lefts, rights,
+                                              device=device)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - made["t0"]
+    launches = read_counters(counters, "by run_sequence_batched")
+    bstep = made["step"]
+    frame_ms = [a.elapsed_time(b) for a, b in events]
+    traj = outs.T_wc.cpu().numpy()
+    ok = outs.tracking_ok.cpu().numpy()
+    kf = outs.kf_inserted.cpu().numpy()
+    runs = bstep.replays
+    eager = step_mod.make_batched_step(cfg)
+    sts, e_traj, e_ok, e_kf = init_states(cfg, B, device), [], [], []
+    for t in range(T):
+        sts, o, _ = eager(sts, lefts[:, t], rights[:, t])
+        e_traj.append(o.T_wc)
+        e_ok.append(o.tracking_ok)
+        e_kf.append(o.kf_inserted)
+    equal = (np.array_equal(traj, torch.stack(e_traj, 1).cpu().numpy())
+             and np.array_equal(ok, torch.stack(e_ok, 1).cpu().numpy())
+             and np.array_equal(kf, torch.stack(e_kf, 1).cpu().numpy()))
+    require(equal, "phase 15: run_sequence_batched's poses or flags differ "
+                   "from the eager batched step's")
+    against = runs_against_flags(runs, ok, kf)
+    split = child({"task": "steady", "batch": B})
+    steady = frame_ms[1:]
+    return {"config": "SvoConfig()", "batch": B, "frames": T,
+            "path": "engine/runner.run_sequence_batched",
+            "host_syncs": 0, "bit_for_bit_eager_batched": True,
+            "body_runs": runs, "body_runs_against_flags": against,
+            "first_frame_ms": frame_ms[0],
+            "frame_ms_median": statistics.median(steady),
+            "frame_ms_p90": statistics.quantiles(steady, n=10)[8],
+            "fps_aggregate_events": 1000.0 * B * len(steady) / sum(steady),
+            "fps_aggregate_wall": B * T / wall_s, "wall_seconds": wall_s,
+            "capture_seconds": bstep.capture_seconds,
+            "launches": launches,
+            "launches_per_batched_frame": {k: v / T
+                                           for k, v in launches.items()},
+            "steady_window": split,
+            "frame_ms_all": frame_ms}
 
 
 def main() -> int:
@@ -2473,7 +2861,8 @@ def main() -> int:
 
     # ---- phase 8: batched-8 ----
     mark("phase8")
-    phase8, states8 = batched_run(cfg, counters, device, svo3.trajectory())
+    phase8, states8, frames8 = batched_run(cfg, counters, device,
+                                           svo3.trajectory())
     emit("phase8", phase8)
     detail["phase8"] = phase8
 
@@ -2525,8 +2914,8 @@ def main() -> int:
 
     # ---- phase 12: the graphed step against the eager one ----
     mark("phase12")
-    phase12 = graphed_vs_eager(cfg, lefts, rights, gt, counters, svo3,
-                               phase3, svo7._step)
+    phase12, e_traj, e_metrics = graphed_vs_eager(
+        cfg, lefts, rights, gt, counters, svo3, phase3, svo7._step)
     # graph P (the pyramid: B1, then B2 on every level) of each
     # configuration's step: one node of each kernel
     phase12["graph_P"] = dict(graph_p, **{"SvoConfig()": graph_p_nodes(svo3)})
@@ -2563,6 +2952,18 @@ def main() -> int:
     emit("phase14", phase14)
     detail["phase14"] = phase14
     check_long_horizon(phase14)
+
+    # ---- phase 15: run_sequence_scan and run_sequence_batched with no
+    # host read from the first frame to the last ----
+    mark("phase15")
+    phase15 = {"scan": scan_run(cfg, lefts, rights, counters, device,
+                                e_traj, e_metrics),
+               "batched": batched_scan_run(cfg, *frames8, counters, device)}
+    for key in ("scan", "batched"):
+        detail[f"phase15_{key}_frame_ms"] = phase15[key].pop("frame_ms_all")
+    emit("phase15", phase15)
+    detail["phase15"] = phase15
+    del frames8
     mark("end")
     seconds["total"] = clock[0] - t_start
     emit("seconds", seconds)
@@ -2635,8 +3036,86 @@ def main() -> int:
     return 0
 
 
+def child(task: dict) -> dict:
+    """Run ``task`` in a process of its own (child_main): the profiled
+    frames of phase 12 and the steady windows of phase 15. In this
+    process, after the earlier phases' profiles and steps, the profiler
+    was seen to drop records inside the frame graph's bodies and to
+    stretch kernels (PERF.md §7)."""
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), CHILD_FLAG,
+         json.dumps(task)], capture_output=True, text=True, timeout=600)
+    require(proc.returncode == 0, f"child {task['task']}: "
+                                  f"{proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def steady_window(cfg, lefts, rights, B: int) -> dict:
+    """steady_split of a fresh graphed step (B = 0) or graphed batched
+    step over SCAN_PROFILE_FRAMES frames: phase 3's from frame
+    SCAN_PROFILE_AT, or phase 8's last ones."""
+    from stereo_svo_tpu_torch.engine import graphed
+    if B:
+        step = graphed.make_graphed_batched_step(cfg, B, "cuda")
+        a0 = BATCH_FRAMES - SCAN_PROFILE_FRAMES
+        frame = lambda t: step(step.state, lefts[:, t], rights[:, t])  # noqa: E731
+    else:
+        step = graphed.make_graphed_step(cfg, "cuda")
+        a0 = SCAN_PROFILE_AT
+        frame = lambda t: step(step.state, lefts[t], rights[t])  # noqa: E731
+    n = SCAN_PROFILE_FRAMES
+
+    def drive_to():
+        step.reset()
+        for t in range(a0 - 1):
+            frame(t)
+
+    def window():
+        for t in range(a0, a0 + n):
+            frame(t)
+    return dict(steady_split(
+        drive_to, lambda: frame(a0 - 1), window, n,
+        os.path.join(ROOT, "build", f"chip_smoke_steady_{B}_trace.json")),
+        first_frame=a0)
+
+
+def child_main(task: dict) -> int:
+    """The child process (``chip_smoke.py CHILD_FLAG '<task json>'``): the
+    frames rendered again as phase 3 (and phase 8) render them, the task,
+    one JSON line."""
+    import torch
+    sys.path.insert(0, ROOT)
+    import stereo_svo_tpu_torch  # noqa: F401  (sets the TF32 flags)
+    from stereo_svo_tpu_torch.config import SvoConfig
+    from stereo_svo_tpu_torch.engine.runner import StereoSvo
+    from stereo_svo_tpu_torch.io import synthetic
+    from stereo_svo_tpu_torch.ops.kernels import align_kernel as ak
+    from stereo_svo_tpu_torch.ops.kernels import pyramid_kernel as pk
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    cfg = SvoConfig()
+    if task.get("batch"):
+        seqs = [synthetic.make_sequence(cfg.camera, BATCH_FRAMES, DT,
+                                        kind="arc", seed=b, device=device)
+                for b in range(task["batch"])]
+        lefts = torch.stack([q[0] for q in seqs])
+        rights = torch.stack([q[1] for q in seqs])
+    else:
+        lefts, rights, _ = synthetic.make_sequence(
+            cfg.camera, N_FRAMES, DT, kind="arc", seed=SEED, device=device)
+    if task["task"] == "profile_frames":
+        out = profile_frames("graphed", StereoSvo, cfg, lefts, rights,
+                             (pk.LAUNCHES, ak.LAUNCHES), task["kinds"])
+    else:
+        out = steady_window(cfg, lefts, rights, task["batch"])
+    print(json.dumps(out))
+    return 0
+
+
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == [CHILD_FLAG]:
+            sys.exit(child_main(json.loads(sys.argv[2])))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)

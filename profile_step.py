@@ -19,12 +19,12 @@ over the first 40 frames of chip_smoke.py's sequences (arc/planes at
 
 Passes 1 and 2 run the eager step (engine/step.make_step, through
 chip_smoke.EagerSvo). Then "graphed": the same frames through StereoSvo,
-which replays the step's CUDA graphs (engine/graphed.py) on every frame
-after the bootstrap: host-timed ms of the tracking and keyframe frames,
+which launches the step's frame graph (engine/graphed.py) once a frame,
+the bootstrap included: host-timed ms of the tracking and keyframe frames,
 and for the same tracking frame and keyframe frame (each with the frame
 before it in the profiler's warm-up step) the host's kernel launches,
 graph launches and copies and the device ms under torch.profiler, with
-the graphs' nodes by kind, graph P's kernel nodes by kernel (the
+the bodies' nodes by kind, body P's kernel nodes by kernel (the
 pyramid: one B1 and one B2 node), the capture seconds and graph pool
 MB; and "batched8": chip_smoke.py phase 8's eight sequences through the
 graphed batched step (graphed.make_graphed_batched_step), host-timed
@@ -42,6 +42,17 @@ its last online-loop call and on its final state, the CUDA launches,
 device ms and synchronised wall ms of one online-loop call and one
 refine_trajectory call, and of their parts: the edge measurement
 (loop_closure.measure_edges) and the pose graph (pose_graph.optimize).
+
+Then "idle": StereoSvo (SvoConfig()) over phase 3's frames, 20 steady
+frames from frame 40 with no sync between them, timed by CUDA events around
+every graph launch and then under torch.profiler: per frame, the device's
+busy time and its idle time inside graph windows (a launch's events) and
+between them (chip_smoke.steady_split). ``--only idle`` runs that line alone;
+``--tree DIR`` imports the package from another checkout (unpacked with
+``git archive``), so the same measurement reads another commit's step:
+
+    python3 profile_step.py --only idle --tree build/parent \
+        --out build/idle_parent.json
 
 Prints one line per configuration, "<name> {json}", then writes all of
 them to --out.
@@ -87,7 +98,8 @@ def loop_profile(dev):
                                 counters) as calls:
         _, _, _, svo = chip_smoke.drive(cfg, lefts, rights, gt, counters,
                                         before_frame=inject,
-                                        make_svo=chip_smoke.EagerSvo)
+                                        make_svo=chip_smoke.EagerSvo,
+                                        want=(0, 1))
     st = calls[-1]["args"][1]
     traj = svo.trajectory()
 
@@ -141,7 +153,6 @@ def batched_profile(dev):
     import chip_smoke
     from stereo_svo_tpu_torch.config import SvoConfig
     from stereo_svo_tpu_torch.engine import graphed
-    from stereo_svo_tpu_torch.engine.step import HostFlags
     from stereo_svo_tpu_torch.io import synthetic
 
     cfg, B, T = SvoConfig(), chip_smoke.BATCH, chip_smoke.BATCH_FRAMES
@@ -150,12 +161,9 @@ def batched_profile(dev):
     lefts = torch.stack([q[0] for q in seqs])
     rights = torch.stack([q[1] for q in seqs])
     bstep = graphed.make_graphed_batched_step(cfg, B, dev)
-    flags = [HostFlags(booted=False, tracking_ok=True)] * B
-    box = {"flags": flags}
 
     def frame(t):
-        box["flags"] = bstep(bstep.state, lefts[:, t], rights[:, t],
-                             box["flags"])[2]
+        bstep(bstep.state, lefts[:, t], rights[:, t])
 
     t_prof = T // 2
     ms, out = [], {}
@@ -181,10 +189,51 @@ def batched_profile(dev):
     return out
 
 
+def idle_profile(dev, trace_path):
+    """The "idle" line: StereoSvo over chip_smoke.py phase 3's frames up to
+    frame chip_smoke.SCAN_PROFILE_AT, then SCAN_PROFILE_FRAMES steady
+    frames with no sync between them, timed by CUDA events around every
+    graph launch and then under torch.profiler: per frame, the frame's ms,
+    the device's busy ms and idle ms inside graph windows and between
+    them (chip_smoke.steady_split)."""
+    import torch
+    import chip_smoke
+    from stereo_svo_tpu_torch.config import SvoConfig
+    from stereo_svo_tpu_torch.engine import runner
+    from stereo_svo_tpu_torch.io import synthetic
+
+    cfg = SvoConfig()
+    a0, n = chip_smoke.SCAN_PROFILE_AT, chip_smoke.SCAN_PROFILE_FRAMES
+    lefts, rights, _ = synthetic.make_sequence(
+        cfg.camera, a0 + n, chip_smoke.DT, kind="arc", seed=chip_smoke.SEED,
+        device=dev)
+    svo = {}
+
+    def drive_to():
+        svo["step"] = runner.StereoSvo(cfg, device="cuda")
+        for t in range(a0 - 1):
+            svo["step"].new_image(lefts[t], rights[t])
+
+    def window():
+        for t in range(a0, a0 + n):
+            svo["step"].new_image(lefts[t], rights[t])
+    out = chip_smoke.steady_split(
+        drive_to, lambda: svo["step"].new_image(lefts[a0 - 1],
+                                                rights[a0 - 1]),
+        window, n, trace_path)
+    kf = svo["step"].metrics()["kf_inserted"][a0:].tolist()
+    return dict(out, first_frame=a0, keyframes_in_window=int(sum(kf)))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "build",
                                                   "profile_step.json"))
+    ap.add_argument("--only", choices=["idle"],
+                    help="run only the named line")
+    ap.add_argument("--tree", help="import stereo_svo_tpu_torch from this "
+                                   "checkout (another commit's tree) "
+                                   "instead of this one's")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -192,14 +241,30 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     import chip_smoke
+    if args.tree:
+        sys.path.insert(0, os.path.abspath(args.tree))
     import stereo_svo_tpu_torch  # noqa: F401  (sets the TF32 flags)
+    dev = torch.device("cuda")
+    # the trace (tens of MB) goes to build/, beside the kernels
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    trace = os.path.join(ROOT, "build", "profile_step_idle_trace.json")
+    if args.only == "idle":
+        print(chip_smoke.nvidia_smi_line(), flush=True)
+        results = {"idle": dict(idle_profile(dev, trace),
+                                package=stereo_svo_tpu_torch.__file__)}
+        print("idle", json.dumps(results["idle"]), flush=True)
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=1)
+        return 0
     from stereo_svo_tpu_torch.config import (SvoConfig, kitti_config,
                                              stress_config)
     from stereo_svo_tpu_torch.engine import runner
     from stereo_svo_tpu_torch.engine import step as step_mod
     from stereo_svo_tpu_torch.io import synthetic
 
-    n, dev = N_FRAMES, torch.device("cuda")
+    n = N_FRAMES
     print(chip_smoke.nvidia_smi_line(), flush=True)
     lefts, rights, _ = synthetic.make_sequence(
         SvoConfig().camera, n, chip_smoke.DT, kind="arc",
@@ -310,6 +375,8 @@ def main() -> int:
         step_mod.run_window_ba = run_window_ba
     results["loop"] = loop_profile(dev)
     print("loop", json.dumps(results["loop"]), flush=True)
+    results["idle"] = idle_profile(dev, trace)
+    print("idle", json.dumps(results["idle"]), flush=True)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(results, f, indent=1)

@@ -140,7 +140,7 @@ def _jacobi_cholesky_solve(S: torch.Tensor, rhs: torch.Tensor
     S_hat = S * d[:, None] * d[None, :]
     with solve_ops.batched_linalg(S_hat):
         U, info = torch.linalg.cholesky_ex(S_hat, upper=True)
-        y = torch.cholesky_solve((rhs * d)[:, None], U, upper=True)[:, 0]
+    y = solve_ops.cholesky_solve_upper(U, (rhs * d)[:, None])[:, 0]
     y = torch.where(info == 0, y, torch.full_like(y, float("nan")))
     return y * d
 

@@ -9,9 +9,9 @@ solver refines absolute keyframe poses T_wk minimising
 over a fixed-capacity edge list (weight 0 = inactive). As in the reference,
 the (6E, 6K) Jacobian is the forward-mode derivative of the weighted
 residual at ξ = 0 (``torch.func.jacfwd``), and the gauge slot and invalid
-slots are pinned with 1e12 on the diagonal. The solve is
-``torch.linalg.solve_ex``, which checks nothing and so never syncs the host:
-the online loop calls this inside a keyframe frame.
+slots are pinned with 1e12 on the diagonal. The solve is an LU with
+partial pivoting that checks nothing, and so never syncs the host
+(``solve.lu_solve``): the online loop calls this inside a keyframe frame.
 """
 
 from __future__ import annotations
@@ -99,7 +99,7 @@ def optimize(T_wk: torch.Tensor, valid: torch.Tensor, graph: PoseGraph,
         J, r = _linearize(T, graph)
         A = J.T @ J + damp
         with solve.batched_linalg(A):
-            dx = torch.linalg.solve_ex(A, J.T @ r).result
+            dx = solve.lu_solve(A, J.T @ r)
         T = se3.compose(se3.exp(-dx.reshape(K, 6)), T)
     final = torch.sum(_residual(T, graph) ** 2 * graph.weight[:, None])
     return T, final

@@ -2,64 +2,84 @@
 ``make_jitted_step`` (``jax.jit(make_step(cfg), donate_argnums=(0,))``) —
 and its batched form, the counterpart of the jitted ``make_batched_step``.
 
-JAX compiles the step once and donates the state's buffers, so a frame
-reuses them. Here every phase of a frame after the bootstrap is captured
-once as a CUDA graph over static buffers, and a frame replays them:
+JAX compiles the step once, keeps every branch of a frame on the device
+(``lax.cond``) and donates the state's buffers, so a frame reuses them.
+Here every phase of a frame is captured once as a CUDA graph of its own
+(a body) over static buffers, and the bodies are assembled into one frame
+graph ``F`` whose conditional (IF) nodes take the place of the ``lax.cond``
+branches: a frame is one launch of ``F``, with no host read.
+
+The bodies, in the order ``F`` runs them:
 
 * ``P``: ``pyramid.build_with_gradients`` of the left image (kernels B1,
-  B2). Its captured outputs are the static pyramid, which both track
-  variants, the keyframe phase and ``B`` read, so it needs no copy;
-* ``A_ok`` / ``A_fail``: ``track_phase`` with ``prev_ok`` True / False
-  (False adds the rotated relocalisation variants), its state copied into
-  the static ``S'`` and its ``TrackCtx`` into a static one (B3, B4);
-* ``K`` / ``K_loop``: ``kf_phase`` on ``S'`` — ``keyframe.insert`` (B3 in
-  the stereo match) and, with ``use_ba``, window BA; ``K_loop`` adds the
-  online loop closure (B2, B3, B4 at the thumbnail, the pose graph) and is
-  captured only when ``online_loop_every > 0`` — its state copied back
-  into ``S'``;
-* ``B``: ``post_phase`` on ``S'``, its state copied back into the live
-  state ``S`` (what donation is to JAX) and its ``FrameOut`` into a static
-  one (B3: the template rebuild).
+  B2). Its captured outputs are the static pyramid, which every later
+  body reads, so it needs no copy. Runs every frame;
+* ``flags``: ``step.device_flags`` of the live state ``S`` (booted, the
+  previous frame's ``tracking_ok``) into the static predicates of the
+  bodies below, and the frame's count. Runs every frame;
+* ``boot`` (``!booted``): the bootstrap on ``S``, its state copied back
+  into ``S`` and its ``FrameOut`` into the static one (B3);
+* ``A_ok`` (``booted & prev_ok``) / ``A_fail`` (``booted & !prev_ok``):
+  ``track_phase`` with ``prev_ok`` True / False (False adds the rotated
+  relocalisation variants), its state copied into the static ``S'`` and
+  its ``TrackCtx`` into a static one, then ``step.device_decisions`` into
+  the predicates of ``K`` and ``K_loop`` (B3, B4);
+* ``K`` (``need_kf & !run_loop``) / ``K_loop`` (``run_loop``): ``kf_phase``
+  on ``S'`` — ``keyframe.insert`` (B3 in the stereo match) and, with
+  ``use_ba``, window BA; ``K_loop`` adds the online loop closure (B2, B3,
+  B4 at the thumbnail, the pose graph) and exists only when
+  ``online_loop_every > 0`` — its state copied back into ``S'``;
+* ``B`` (``booted``): ``post_phase`` on ``S'``, its state copied back into
+  ``S`` (what donation is to JAX) and its ``FrameOut`` into the static one
+  (B3: the template rebuild).
 
-A tracked frame runs: replay ``P``; replay ``A_ok`` or ``A_fail`` (the
-host's copy of the previous frame's ``tracking_ok``); the step's one host
-sync (``step._read_decisions``); on a keyframe frame, replay ``K``, or
-``K_loop`` when the sync says the online loop is due; replay ``B``. The
-bootstrap frame, once a sequence, replays ``P`` and runs ``boot``
-eagerly, its state copied into ``S``.
+Every predicate is a static bool written by a body before the node that
+reads it: ``flags`` writes those of ``boot``, ``A_ok``, ``A_fail`` and
+``B`` (and clears ``K``'s and ``K_loop``'s) before ``boot`` changes the
+state, the track bodies those of ``K`` and ``K_loop``. A one-block kernel
+node of ``csrc/frame_graph.cu`` sets the IF nodes' handles from them
+(``cudaGraphSetConditional``), once after ``flags`` and once after the
+track bodies. ``S'`` has a buffer of its own for every field of the state.
 
-``S'`` has a buffer of its own for every field of the state: graph A
-copies the whole tracked state into it, graph K reads and rewrites it,
-and graph B copies the whole new state back.
-
-The graphs are captured when the step is made, on one side stream after a
+The bodies are captured when the step is made, on one side stream after a
 warm-up of every body on that stream (which also allocates B4's scratch
 for it, ``align_kernel._scratch``, and pays the first ``jacfwd``'s
-set-up), into one memory pool, in the order ``P``, ``A_ok``, ``A_fail``,
-``K``, ``K_loop``, ``B``. The data that passes between graphs lives in
-buffers allocated outside the pool (``S``, ``S'``, the context, the
-output) or in the pyramid, which stays referenced; a graph's pool memory
-holds only its own temporaries (window BA's reduced system among them),
-so the graphs may replay in any order, one at a time. Capture
-synchronises, so it happens here and never inside a frame.
+set-up), into one memory pool, ``P`` first (the pyramid outlives its
+capture). The data that passes between bodies lives in buffers allocated
+outside the pool (``S``, ``S'``, the context, the output, the predicates)
+or in the pyramid, which stays referenced; a body's pool memory holds only
+its own temporaries. ``F`` clones the bodies' graphs as child-graph nodes
+and is the only graph instantiated. A conditional body may hold only
+kernel, memset, device-to-device memcpy, empty, child-graph and
+conditional nodes: capture raises on a body that holds any other kind (a
+memory allocation or free, a host or an event node), and building ``F``
+raises on a card or CUDA without conditional nodes (12.4 and later have
+them). Capture synchronises, so it happens here and never inside a frame.
 
-The batched step (:class:`GraphedBatchedStep`) captures the same six
-graphs once for the whole batch, over one stacked set of static buffers:
-its bodies are the ``torch.func.vmap``ped phases of
+The batched step (:class:`GraphedBatchedStep`) captures the same bodies
+once for the whole batch, over one stacked set of static buffers: its
+bodies are the ``torch.func.vmap``ped phases of
 ``step.make_batched_phases``, so each kernel node takes the B sequences
-as its problem axis (the reference's jitted ``vmap``).
+as its problem axis (the reference's jitted ``vmap``), and its predicates
+are the reference's batch-level conds (``step.device_flags_batched``,
+``step.device_decisions_batched``).
 
-The host's launch counters (``pyramid_kernel.LAUNCHES``,
-``align_kernel.LAUNCHES``) do not move on a replay. After each capture the
-graph's kernel nodes are read back through libcuda by function name
-(:func:`scan`); they must equal the launches the wrappers counted while
-capturing (capture raises otherwise), and each replay adds them.
+Launch accounting. The host does not know which bodies a frame ran, and
+the launch counters (``pyramid_kernel.LAUNCHES``, ``align_kernel.LAUNCHES``)
+do not move on a launch of ``F``. Each body instead adds 1 to its own slot
+of a device counter (one kernel node). After each capture the body's
+kernel nodes are read back through libcuda by function name (:func:`scan`);
+they must equal the launches the wrappers counted while capturing (capture
+raises otherwise). :func:`settle` (one read of each step's counter, a
+dropped step's too, outside the frames) adds each body's runs since the
+last settle times its kernel nodes to the launch counters.
 
 On the CPU the same objects run the same bodies directly on the same
-static buffers, with no capture: the graphs' plain version, on which the
-tests hold the copies to the eager ``step.make_step`` and
-``step.make_batched_step`` bit for bit. On CUDA there is no eager
-fallback: a capture or a replay that fails raises.
+static buffers, with no capture, and branch on the same predicates read
+with ``.item()``: the frame graph's plain version, on which the tests hold
+the copies to the eager ``step.make_step`` and ``step.make_batched_step``
+bit for bit. On CUDA there is no other path: a capture or a launch that
+fails raises.
 
 The returned state is the live buffers and the returned ``FrameOut`` the
 static one: the next frame overwrites both, so a caller that keeps either
@@ -72,6 +92,7 @@ import ctypes
 import gc
 import re
 import time
+import weakref
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -79,19 +100,27 @@ import torch
 from ..config import SvoConfig
 from ..device import resolve
 from ..ops import pyramid
-from ..ops.kernels import align_kernel, pyramid_kernel
+from ..ops.kernels import _build, align_kernel, pyramid_kernel
 from .state import FrameOut, SlamState, init_state, init_states
-from .step import (HostFlags, _read_decisions, host_flags,
-                   host_flags_batched, make_batched_phases, make_phases)
+from .step import (device_decisions, device_decisions_batched,
+                   device_flags, device_flags_batched, make_batched_phases,
+                   make_phases)
 
 COUNTERS = (pyramid_kernel.LAUNCHES, align_kernel.LAUNCHES)
 KERNELS = {**pyramid_kernel.KERNELS, **align_kernel.KERNELS}
 _COUNTER = {key: counts for counts in COUNTERS for key in counts}
-GRAPHS = ("P", "A_ok", "A_fail", "K", "K_loop", "B")
+# the bodies, in capture order: the single step's, then those only the
+# batched step has (the bootstrap of some sequences of a booted batch)
+GRAPHS = ("P", "flags", "boot", "A_ok", "A_fail", "K", "K_loop", "B")
+BATCH_GRAPHS = ("P", "flags", "boot", "A_ok", "A_fail", "K", "K_loop",
+                "save", "B", "boot_mix")
 # CUgraphNodeType (cuda.h) of the node kinds a capture may record
 _NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
                4: "graph", 5: "empty", 6: "wait_event", 7: "event_record",
                10: "mem_alloc", 11: "mem_free", 13: "conditional"}
+# what a conditional body may not hold (CUDA's rules for IF-node bodies)
+NOT_IN_A_BODY = ("host", "wait_event", "event_record", "mem_alloc",
+                 "mem_free", "other")
 
 
 class _KernelNodeParams(ctypes.Structure):
@@ -163,10 +192,16 @@ def counter_of(function: str) -> Optional[str]:
     return None
 
 
-def _nodes(graph: torch.cuda.CUDAGraph):
+def _raw(graph) -> int:
+    """The cudaGraph_t of a captured torch graph, or a raw handle."""
+    return graph if isinstance(graph, int) else graph.raw_cuda_graph()
+
+
+def _nodes(graph):
     """(kind, CUDA function name — mangled, as libcuda gives it — or None
-    for a node that is no kernel) of every node of a captured graph, read
-    from the graph through libcuda."""
+    for a node that is no kernel) of every node of a captured graph (a
+    torch graph or a raw cudaGraph_t), read from the graph through
+    libcuda."""
     drv = ctypes.CDLL("libcuda.so.1")
     ptr = ctypes.c_void_p
 
@@ -175,7 +210,7 @@ def _nodes(graph: torch.cuda.CUDAGraph):
         if err:
             raise RuntimeError(f"{fn} failed: CUresult {err}")
 
-    raw, n = ptr(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    raw, n = ptr(_raw(graph)), ctypes.c_size_t(0)
     call("cuGraphGetNodes", raw, None, ctypes.byref(n))
     nodes = (ptr * n.value)()
     call("cuGraphGetNodes", raw, nodes, ctypes.byref(n))
@@ -198,8 +233,7 @@ def _nodes(graph: torch.cuda.CUDAGraph):
         yield kind, names[handle]
 
 
-def scan(graph: torch.cuda.CUDAGraph
-         ) -> Tuple[Dict[str, int], Dict[str, int]]:
+def scan(graph) -> Tuple[Dict[str, int], Dict[str, int]]:
     """(nodes by kind — "kernel", "memcpy", "memset", "other" and any
     other kind of ``_NODE_TYPES`` the graph holds — and kernel nodes by
     launch counter) of a captured graph, read from the graph through
@@ -214,7 +248,7 @@ def scan(graph: torch.cuda.CUDAGraph
     return kinds, kernels
 
 
-def kernel_names(graph: torch.cuda.CUDAGraph) -> Dict[str, int]:
+def kernel_names(graph) -> Dict[str, int]:
     """A captured graph's kernel nodes by CUDA function name (mangled):
     what two graphs' node counts differ by."""
     out: Dict[str, int] = {}
@@ -226,33 +260,107 @@ def kernel_names(graph: torch.cuda.CUDAGraph) -> Dict[str, int]:
 
 def capture(body: Callable[[], object], pool, stream: torch.cuda.Stream
             ) -> Tuple[torch.cuda.CUDAGraph, object, Dict[str, int]]:
-    """Capture ``body()`` on ``stream`` into ``pool``: (the instantiated
-    graph, what the body returned — tensors that replays overwrite — and
-    the launches the wrappers counted during capture, which are taken
-    back from the counters). A body that synchronises, reads the device or
-    does anything else capture refuses raises here."""
+    """Capture ``body()`` on ``stream`` into ``pool``: (the captured
+    graph, not instantiated — a frame graph clones it —, what the body
+    returned — tensors that launches overwrite — and the launches the
+    wrappers counted during capture, which are taken back from the
+    counters). A body that synchronises, reads the device or does anything
+    else capture refuses raises here."""
     before = _counts()
-    graph = torch.cuda.CUDAGraph(keep_graph=True)  # for scan
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
     try:
         with torch.cuda.graph(graph, pool=pool, stream=stream):
             out = body()
     finally:
         after = _counts()
         _set_counts(before)
-    graph.instantiate()
     return graph, out, {k: after[k] - before[k] for k in before}
 
 
+def _destroy_frame_graph(lib, graph: ctypes.c_void_p,
+                         exe: ctypes.c_void_p) -> None:
+    if exe.value:
+        lib.svo_graph_exec_destroy(exe)
+    if graph.value:
+        lib.svo_graph_destroy(graph)
+
+
+class _FrameGraph:
+    """``F`` on the card: the ``plan`` of a step — ("run", body) for a
+    body every frame runs, ("if", body) for one under its predicate,
+    ("set", bodies) for the kernel node that sets those bodies' IF
+    handles from their predicates — assembled in that order from the
+    bodies' captured graphs (csrc/frame_graph.cu) and instantiated."""
+
+    def __init__(self, plan, graphs: Dict[str, torch.cuda.CUDAGraph],
+                 preds: Dict[str, torch.Tensor]):
+        lib = _build.load_library()
+        self._lib = lib
+        self._graph, self._exe = ctypes.c_void_p(), ctypes.c_void_p()
+        weakref.finalize(self, _destroy_frame_graph, lib, self._graph,
+                         self._exe)
+
+        def check(rc, what):
+            if rc:
+                raise RuntimeError(
+                    f"frame graph: {what} failed (cudaError {rc}); "
+                    f"conditional nodes need CUDA 12.4 on the card")
+
+        check(lib.svo_graph_create(ctypes.byref(self._graph)), "creating")
+        handles = {}
+        for op, arg in plan:
+            if op == "if":
+                h = ctypes.c_ulonglong()
+                check(lib.svo_graph_cond_handle(self._graph,
+                                                ctypes.byref(h)),
+                      f"the handle of {arg}")
+                handles[arg] = h.value
+        last = ctypes.c_void_p()
+        for op, arg in plan:
+            if op == "run":
+                check(lib.svo_graph_add_child(
+                    self._graph, ctypes.byref(last),
+                    ctypes.c_void_p(graphs[arg].raw_cuda_graph())),
+                    f"body {arg}")
+            elif op == "if":
+                check(lib.svo_graph_add_if(
+                    self._graph, ctypes.byref(last), handles[arg],
+                    ctypes.c_void_p(graphs[arg].raw_cuda_graph())),
+                    f"the conditional body {arg}")
+            else:
+                n = len(arg)
+                check(lib.svo_graph_add_set(
+                    self._graph, ctypes.byref(last),
+                    (ctypes.c_ulonglong * n)(*(handles[b] for b in arg)),
+                    (ctypes.c_void_p * n)(*(preds[b].data_ptr()
+                                            for b in arg)), n),
+                    f"the predicates of {arg}")
+        check(lib.svo_graph_instantiate(self._graph,
+                                        ctypes.byref(self._exe)),
+              "instantiating")
+
+    @property
+    def raw(self) -> int:
+        """The cudaGraph_t, for :func:`scan`."""
+        return self._graph.value
+
+    def launch(self, stream: int) -> None:
+        _build.raise_on_error(self._lib.svo_graph_launch(self._exe, stream),
+                              "frame graph")
+
+
 def _capture_graphs(step) -> Tuple[float, int]:
-    """Capture every graph of ``step`` (a :class:`GraphedStep` or
-    :class:`GraphedBatchedStep`) into one pool on one side stream: first
-    a warm-up of every body on that stream (lazy state, B4's scratch for
-    the stream, cuSOLVER's and cuBLAS's handles, the first ``jacfwd``'s
-    set-up), then the captures in ``GRAPHS`` order, each graph's kernel
-    nodes held to what its capture counted. Capture synchronises, so it
-    happens here and never inside a frame. The warm-up writes into the
-    live state, which is reset to the initial state at the end. Returns
-    (seconds, bytes the pool holds)."""
+    """Capture every body of ``step`` (a :class:`GraphedStep` or
+    :class:`GraphedBatchedStep`) into one pool on one side stream and
+    assemble its frame graph: first a warm-up of every body on that stream
+    (lazy state, B4's scratch for the stream, cuSOLVER's and cuBLAS's
+    handles, the first ``jacfwd``'s set-up), then the captures in
+    ``graph_names`` order, each body's kernel nodes held to what its
+    capture counted and its node kinds to what a conditional body may
+    hold, then ``F``. Capture synchronises, so it happens here and never
+    inside a frame. The warm-up writes into the live state and the body
+    counters, which are reset at the end. Returns (seconds, bytes the pool
+    holds)."""
     t0 = time.perf_counter()
     dev = step.device
     with torch.cuda.device(dev):
@@ -275,8 +383,8 @@ def _capture_graphs(step) -> Tuple[float, int]:
             base = torch.cuda.memory_reserved(dev)
             pool = torch.cuda.graph_pool_handle()
             # P first: the pyramid outlives its capture, and in memory that
-            # a graph captured before it used for temporaries, that graph's
-            # replays would overwrite it
+            # a body captured before it used for temporaries, that body
+            # would overwrite it
             for name in step.graph_names:
                 graph, _, counted = capture(
                     lambda: step._body(name), pool, side)
@@ -286,92 +394,149 @@ def _capture_graphs(step) -> Tuple[float, int]:
                         f"graph {name} holds the kernel nodes "
                         f"{step.kernel_nodes[name]}, but its capture "
                         f"counted the launches {counted}")
+                barred = {k: n for k, n in step.nodes[name].items()
+                          if k in NOT_IN_A_BODY and n}
+                if barred:
+                    raise RuntimeError(
+                        f"graph {name} holds {barred}: a conditional body "
+                        f"may hold only kernel, memset, memcpy, empty, "
+                        f"child-graph and conditional nodes")
                 step.graphs[name] = graph
         finally:
             if collecting:
                 gc.enable()
+        step._frame = _FrameGraph(step._plan, step.graphs,
+                                  step._pred_views)
+        step.nodes["F"], _ = scan(step._frame.raw)
         torch.cuda.synchronize(dev)
         pool_bytes = torch.cuda.memory_reserved(dev) - base
         step.reset()
+        step._runs.runs.zero_()
         torch.cuda.synchronize(dev)
     return time.perf_counter() - t0, pool_bytes
 
 
-class GraphedStep:
-    """``step(state, img_l, img_r, flags=None) -> (state, FrameOut,
-    flags)``, ``make_step``'s signature, on static buffers (module
-    docstring). Images are (H,W) at the configuration's camera size.
+class _Runs:
+    """A step's body run counter on the device (a slot a body: each run
+    adds 1), each body's kernel nodes, and the runs already added to the
+    launch counters. It outlives its step until :func:`settle` has added
+    its last runs."""
 
-    A frame is :meth:`track`, the host's read of its decisions
-    (``step._read_decisions`` of :attr:`tracked`), then :meth:`finish`;
-    ``__call__`` runs the three."""
+    def __init__(self, names: Tuple[str, ...], device: torch.device):
+        self.names = names
+        self.runs = torch.zeros(len(names), dtype=torch.int64, device=device)
+        self.settled = [0] * len(names)
+        self.kernel_nodes: Dict[str, Dict[str, int]] = {}
+        self.step_alive = True
 
-    def __init__(self, cfg: SvoConfig, device="cuda"):
+    def add(self, name: str) -> None:
+        i = self.names.index(name)
+        self.runs[i:i + 1] += 1
+
+    def read(self) -> Dict[str, int]:
+        return dict(zip(self.names, self.runs.tolist()))
+
+    def settle(self) -> None:
+        """Add the runs since the last settle, times each body's kernel
+        nodes, to the launch counters (one read). The flags body counts
+        the frames, so P's nodes go with it."""
+        runs = self.runs.tolist()
+        for name, now, then in zip(self.names, runs, self.settled):
+            for body in ("P", name) if name == "flags" else (name,):
+                for key, n in self.kernel_nodes.get(body, {}).items():
+                    _COUNTER[key][key] += (now - then) * n
+        self.settled[:] = runs
+
+
+# the run counters of the steps made, until settle() has added the last
+# runs of a step that is gone
+_RUNS: List[_Runs] = []
+
+
+def settle() -> None:
+    """Add every step's body runs since the last settle, times each
+    body's kernel nodes, to the launch counters: one read of each step's
+    counter (the steps dropped since included). Call it outside the
+    frames, before the counters are set or read."""
+    for runs in list(_RUNS):
+        runs.settle()
+        if not runs.step_alive:
+            _RUNS.remove(runs)
+
+
+class _FrameStep:
+    """What the single and the batched step share: the static buffers,
+    the body counters, the frame graph and its plain version. A subclass
+    sets ``_preds`` (a predicate slot per conditional body), ``_plan`` and
+    ``graph_names`` and defines ``_run_body(name)``."""
+
+    _preds: Tuple[str, ...] = ()
+
+    def _setup(self, cfg: SvoConfig, device, state: SlamState, hw,
+               graph_names, plan) -> None:
         self.cfg = cfg
         self.device = resolve(device)
-        self._boot, self._track, self._kf, self._post = make_phases(cfg)
-        self.state: SlamState = init_state(cfg, self.device)  # S, live
+        self.state: SlamState = state                       # S, live
         self._s = _leaves(self.state)
-        self._s1 = [torch.empty_like(x) for x in self._s]     # S', staged
+        self._s1 = [torch.empty_like(x) for x in self._s]   # S', staged
         self._ctx: Optional[List[torch.Tensor]] = None
         self._ctx_like = None
         self._out: Optional[FrameOut] = None
-        hw = (cfg.camera.height, cfg.camera.width)
         self._img_l = torch.zeros(hw, dtype=torch.float32, device=self.device)
         self._img_r = torch.zeros_like(self._img_l)
         self._pyr = None
-        # the graphs this configuration runs, in capture order (each body
-        # reads what the ones before it made)
-        self.graph_names = tuple(g for g in GRAPHS if g != "K_loop"
-                                 or cfg.online_loop_every > 0)
+        self.graph_names = tuple(graph_names)
+        # the plan names only the bodies this configuration has
+        self._plan = []
+        for op, arg in plan:
+            if op == "set":
+                arg = tuple(b for b in arg if b in self.graph_names)
+            elif arg not in self.graph_names:
+                continue
+            self._plan.append((op, arg))
+        self._pred = torch.zeros(len(self._preds), dtype=torch.bool,
+                                 device=self.device)
+        self._pred_views = {b: self._pred[i]
+                            for i, b in enumerate(self._preds)}
+        # a body's runs: the flags body counts the frames ("P" too)
+        self._runs = _Runs(tuple(g for g in self.graph_names if g != "P"),
+                           self.device)
         self.graphs: Dict[str, torch.cuda.CUDAGraph] = {}
-        self.replays = dict.fromkeys(GRAPHS, 0)  # (CPU: body runs)
         self.nodes: Dict[str, Dict[str, int]] = {}         # scan(), by kind
-        self.kernel_nodes: Dict[str, Dict[str, int]] = {}  # by counter
+        self.kernel_nodes = self._runs.kernel_nodes        # by counter
+        self._frame: Optional[_FrameGraph] = None
         self.capture_seconds = 0.0
         self.pool_bytes = 0
         if self.device.type == "cuda":
             self.capture_seconds, self.pool_bytes = _capture_graphs(self)
+        _RUNS.append(self._runs)
+        weakref.finalize(self, setattr, self._runs, "step_alive", False)
 
-    # --- the bodies: a phase, then copies into the static buffers ---
+    # --- the bodies ---
 
     def _body(self, name: str) -> None:
-        """Run graph ``name``'s body. (Dispatched by name: bodies bound to
-        the step and kept on it would make a reference cycle, and a step
-        freed by the cyclic collector during another step's capture would
-        destroy its graphs there, which invalidates that capture.)"""
-        if name == "P":
-            self._body_p()
-        elif name in ("A_ok", "A_fail"):
-            self._body_a(name == "A_ok")
-        elif name in ("K", "K_loop"):
-            self._body_k(name == "K_loop")
-        else:
-            self._body_b()
+        """Run body ``name`` and add 1 to its counter. (Dispatched by name:
+        bodies bound to the step and kept on it would make a reference
+        cycle, and a step freed by the cyclic collector during another
+        step's capture would destroy its graphs there, which invalidates
+        that capture.)"""
+        self._run_body(name)
+        if name != "P":
+            self._runs.add(name)
 
-    def _body_p(self) -> None:
-        # captured, its outputs are the static pyramid
-        self._pyr = pyramid.build_with_gradients(self._img_l,
-                                                 self.cfg.num_levels)
+    def _set_preds(self, **values: torch.Tensor) -> None:
+        """Write 0-dim bool tensors into the predicates of the bodies
+        named, one copy each."""
+        for name, v in values.items():
+            self._pred_views[name].copy_(v)
 
-    def _body_a(self, prev_ok: bool) -> None:
-        st, ctx = self._track(self.state, *self._pyr, self._img_r,
-                              prev_ok=prev_ok)
-        _copy_into(self._s1, st)
+    def _write_ctx(self, ctx) -> None:
         if self._ctx is None:
             self._ctx_like = ctx
             self._ctx = [torch.empty_like(x) for x in _leaves(ctx)]
         _copy_into(self._ctx, ctx)
 
-    def _body_k(self, run_loop: bool) -> None:
-        # reads S' and writes it: _copy_into clones what lies in it
-        _copy_into(self._s1, self._kf(self._staged(), *self._pyr,
-                                      self._img_r, self.context.T_cw,
-                                      run_loop))
-
-    def _body_b(self) -> None:
-        st, out = self._post(self._staged(), *self._pyr, self.context)
-        _copy_into(self._s, st)
+    def _write_out(self, out: FrameOut) -> None:
         if self._out is None:
             self._out = FrameOut(*(torch.empty_like(x) for x in out))
         _copy_into(list(self._out), out)
@@ -382,228 +547,232 @@ class GraphedStep:
 
     @property
     def context(self):
-        """The static TrackCtx of the last track phase."""
+        """The static TrackCtx of the last track body."""
         return _tree(self._ctx_like, iter(self._ctx))
 
-    @property
-    def tracked(self):
-        """(S', TrackCtx) of the last track phase: what
-        ``step._read_decisions`` reads."""
-        return self._staged(), self.context
+    # --- the frame ---
 
-    # --- replay ---
+    def _frame_plain(self) -> None:
+        """The frame graph's plain version: the plan's bodies run directly,
+        each conditional one where its predicate, read from the device,
+        holds."""
+        for op, arg in self._plan:
+            if op == "run" or (op == "if" and self._pred_views[arg].item()):
+                self._body(arg)
 
-    def _run(self, name: str) -> None:
-        """Replay graph ``name`` (CPU: run its body) and count the
-        launches of its kernel nodes."""
-        self.replays[name] += 1
-        if self.device.type != "cuda":
-            self._body(name)
-            return
-        self.graphs[name].replay()
-        for key, n in self.kernel_nodes[name].items():
-            _COUNTER[key][key] += n
+    def _launch(self, img_l: torch.Tensor, img_r: torch.Tensor) -> None:
+        """The images into the static ones, then one frame: one launch of
+        ``F`` (CPU: its plain version)."""
+        for buf, img in ((self._img_l, img_l), (self._img_r, img_r)):
+            if tuple(img.shape) != tuple(buf.shape):
+                raise ValueError(f"image {tuple(img.shape)}: the step was "
+                                 f"made for {tuple(buf.shape)}")
+            buf.copy_(img)
+        if self._frame is None:
+            self._frame_plain()
+        else:
+            self._frame.launch(_build.stream(self._img_l.device))
 
     def load(self, state: SlamState) -> None:
         """Copy ``state`` into the live buffers (fields that are those
         buffers already are skipped)."""
         _copy_into(self._s, state)
 
+    # --- the body counters ---
+
+    @property
+    def replays(self) -> Dict[str, int]:
+        """Runs of each body since the step was made ("P" and "flags": the
+        frames), read from the device (one read)."""
+        runs = self._runs.read()
+        runs["P"] = runs["flags"]
+        return {g: runs.get(g, 0) for g in BATCH_GRAPHS}
+
+
+class GraphedStep(_FrameStep):
+    """``step(state, img_l, img_r) -> (state, FrameOut)``, the reference's
+    jitted step, on static buffers (module docstring): one launch of the
+    frame graph a frame, the bootstrap included, and no host read. Images
+    are (H,W) at the configuration's camera size."""
+
+    _preds = ("boot", "A_ok", "A_fail", "K", "K_loop", "B")
+
+    def __init__(self, cfg: SvoConfig, device="cuda"):
+        self._boot, self._track, self._kf, self._post = make_phases(cfg)
+        dev = resolve(device)
+        self._setup(
+            cfg, dev, init_state(cfg, dev),
+            (cfg.camera.height, cfg.camera.width),
+            (g for g in GRAPHS if g != "K_loop"
+             or cfg.online_loop_every > 0),
+            [("run", "P"), ("run", "flags"),
+             ("set", ("boot", "A_ok", "A_fail", "B")),
+             ("if", "boot"), ("if", "A_ok"), ("if", "A_fail"),
+             ("set", ("K", "K_loop")), ("if", "K"), ("if", "K_loop"),
+             ("if", "B")])
+
+    def _run_body(self, name: str) -> None:
+        if name == "P":
+            # captured, its outputs are the static pyramid
+            self._pyr = pyramid.build_with_gradients(self._img_l,
+                                                     self.cfg.num_levels)
+        elif name == "flags":
+            booted, prev_ok = device_flags(self.state)
+            no = torch.zeros_like(booted)
+            self._pred.copy_(torch.stack([~booted, booted & prev_ok,
+                                          booted & ~prev_ok, no, no,
+                                          booted]))
+        elif name == "boot":
+            st, out = self._boot(self.state, *self._pyr, self._img_r)
+            _copy_into(self._s, st)
+            self._write_out(out)
+        elif name in ("A_ok", "A_fail"):
+            st, ctx = self._track(self.state, *self._pyr, self._img_r,
+                                  prev_ok=name == "A_ok")
+            _copy_into(self._s1, st)
+            self._write_ctx(ctx)
+            need_kf, _, run_loop = device_decisions(self.cfg, st, ctx)
+            self._set_preds(K=need_kf & ~run_loop, K_loop=run_loop)
+        elif name in ("K", "K_loop"):
+            # reads S' and writes it: _copy_into clones what lies in it
+            _copy_into(self._s1, self._kf(self._staged(), *self._pyr,
+                                          self._img_r, self.context.T_cw,
+                                          name == "K_loop"))
+        else:
+            st, out = self._post(self._staged(), *self._pyr, self.context)
+            _copy_into(self._s, st)
+            self._write_out(out)
+
     def reset(self) -> None:
         """Copy the initial state into the live buffers."""
         self.load(init_state(self.cfg, self.device))
 
-    # --- the step ---
-
-    def track(self, state: SlamState, img_l: torch.Tensor,
-              img_r: torch.Tensor, flags: Optional[HostFlags] = None
-              ) -> HostFlags:
-        """The frame's first half: ``state`` copied into the live buffers
-        (unless it is those), the images into the static ones, then ``P``
-        and, on a booted state, ``A_ok`` or ``A_fail``. Returns the flags
-        :meth:`finish` takes."""
+    def __call__(self, state: SlamState, img_l: torch.Tensor,
+                 img_r: torch.Tensor) -> Tuple[SlamState, FrameOut]:
         if state is not self.state:
             self.load(state)
-        if flags is None:
-            flags = host_flags(self.state)
-        for buf, img in ((self._img_l, img_l), (self._img_r, img_r)):
-            if tuple(img.shape) != tuple(buf.shape):
-                raise ValueError(f"image {tuple(img.shape)}: the step was "
-                                 f"made for {tuple(buf.shape)}")
-            buf.copy_(img)
-        self._run("P")
-        if flags.booted:
-            self._run("A_ok" if flags.tracking_ok else "A_fail")
-        return flags
-
-    def finish(self, flags: HostFlags,
-               decision: Optional[Tuple[bool, bool, bool]] = None
-               ) -> Tuple[SlamState, FrameOut, HostFlags]:
-        """The frame's second half. Booted: ``decision`` is (need_kf, ok,
-        run the online loop), the host's read of :attr:`tracked`; ``K`` or
-        ``K_loop`` when a keyframe is due, then ``B``. Not booted: the
-        eager bootstrap, its state copied into the live buffers."""
-        if not flags.booted:
-            st, out = self._boot(self.state, *self._pyr, self._img_r)
-            _copy_into(self._s, st)
-            return self.state, out, HostFlags(booted=True, tracking_ok=True)
-        need_kf, ok, run_loop = decision
-        if need_kf:
-            self._run("K_loop" if run_loop else "K")
-        self._run("B")
-        return self.state, self._out, HostFlags(booted=True, tracking_ok=ok)
-
-    def __call__(self, state: SlamState, img_l: torch.Tensor,
-                 img_r: torch.Tensor, flags: Optional[HostFlags] = None
-                 ) -> Tuple[SlamState, FrameOut, HostFlags]:
-        flags = self.track(state, img_l, img_r, flags)
-        decision = (_read_decisions(self.cfg, *self.tracked)[0]
-                    if flags.booted else None)
-        return self.finish(flags, decision)
+        self._launch(img_l, img_r)
+        return self.state, self._out
 
 
-class GraphedBatchedStep:
-    """``bstep(states, img_l, img_r, flags=None) -> (states, outs,
-    flags)``, ``step.make_batched_step``'s signature (a stacked state and
-    FrameOut, every field with a leading B axis, (B,H,W) images, a list of
-    B HostFlags), on one stacked set of static buffers: the counterpart of
-    the reference's jitted batched step.
+class GraphedBatchedStep(_FrameStep):
+    """``bstep(states, img_l, img_r) -> (states, outs)``, the reference's
+    jitted batched step (a stacked state and FrameOut, every field with a
+    leading B axis, (B,H,W) images), on one stacked set of static buffers:
+    one launch of the frame graph a batched frame, with no host read.
 
-    Its graphs are those of :class:`GraphedStep`, each captured once over
-    the whole batch: the bodies are ``step.make_batched_phases``, every
-    phase ``torch.func.vmap``ped over the stacked state, so every kernel
-    node takes the B sequences as its problem axis and a graph holds about
-    the single step's nodes, not B times them. ``A_fail`` is replayed when
-    any booted sequence failed last frame (the rotated relocalisation
-    variants count where a sequence's own state failed), ``K`` when any
-    needs a keyframe and ``K_loop`` when the online loop is due in any;
+    Its bodies are those of :class:`GraphedStep`, each captured once over
+    the whole batch from ``step.make_batched_phases``, every phase
+    ``torch.func.vmap``ped over the stacked state, so every kernel node
+    takes the B sequences as its problem axis and a body holds about the
+    single step's nodes, not B times them. Their predicates are the
+    reference's batch-level conds: ``boot`` when no sequence has a
+    keyframe; ``A_fail`` when a booted sequence failed last frame (the
+    rotated variants count where a sequence's own state failed), else
+    ``A_ok``, when any is booted; ``K`` when a booted sequence needs a
+    keyframe and ``K_loop`` when the online loop is due in one; ``B`` when
+    any is booted. A batch that mixes booted and unbooted sequences also
+    runs ``save`` (a copy of ``S`` before ``B``) and ``boot_mix`` (the
+    bootstrap from that copy, kept where a sequence has no keyframe);
     ``where`` keeps each sequence's own result, as the eager batched step
-    does. A batched frame reads the decisions of the whole batch once. A
-    sequence with no keyframe bootstraps eagerly (``vmap`` of ``boot``,
-    kept where the state has no keyframe). The returned state is the live
-    buffers and the FrameOut the static one: the next batched frame
-    overwrites both."""
+    does. The returned state is the live buffers and the FrameOut the
+    static one: the next batched frame overwrites both."""
+
+    _preds = ("boot", "A_ok", "A_fail", "K", "K_loop", "save", "B",
+              "boot_mix")
 
     def __init__(self, cfg: SvoConfig, B: int, device="cuda"):
-        self.cfg = cfg
         self.B = B
-        self.device = resolve(device)
         self._phases = make_batched_phases(cfg)
-        self.state: SlamState = init_states(cfg, B, self.device)  # S, live
-        self._s = _leaves(self.state)
-        self._s1 = [torch.empty_like(x) for x in self._s]        # S'
-        self._ctx: Optional[List[torch.Tensor]] = None
-        self._ctx_like = None
-        self._out: Optional[FrameOut] = None
-        hw = (B, cfg.camera.height, cfg.camera.width)
-        self._img_l = torch.zeros(hw, dtype=torch.float32, device=self.device)
-        self._img_r = torch.zeros_like(self._img_l)
-        self._pyr = None
-        self.graph_names = tuple(g for g in GRAPHS if g != "K_loop"
-                                 or cfg.online_loop_every > 0)
-        self.graphs: Dict[str, torch.cuda.CUDAGraph] = {}
-        self.replays = dict.fromkeys(GRAPHS, 0)  # (CPU: body runs)
-        self.nodes: Dict[str, Dict[str, int]] = {}
-        self.kernel_nodes: Dict[str, Dict[str, int]] = {}
-        self.capture_seconds = 0.0
-        self.pool_bytes = 0
-        if self.device.type == "cuda":
-            self.capture_seconds, self.pool_bytes = _capture_graphs(self)
+        dev = resolve(device)
+        state = init_states(cfg, B, dev)
+        self._before = [torch.empty_like(x) for x in _leaves(state)]
+        self._booted = torch.zeros(B, dtype=torch.bool, device=dev)
+        self._setup(
+            cfg, dev, state, (B, cfg.camera.height, cfg.camera.width),
+            (g for g in BATCH_GRAPHS if g != "K_loop"
+             or cfg.online_loop_every > 0),
+            [("run", "P"), ("run", "flags"),
+             ("set", ("boot", "A_ok", "A_fail", "save", "B", "boot_mix")),
+             ("if", "boot"), ("if", "A_ok"), ("if", "A_fail"),
+             ("set", ("K", "K_loop")), ("if", "K"), ("if", "K_loop"),
+             ("if", "save"), ("if", "B"), ("if", "boot_mix")])
 
-    def _body(self, name: str) -> None:
-        """Run graph ``name``'s body (see :meth:`GraphedStep._body`)."""
+    def _run_body(self, name: str) -> None:
         ph = self._phases
         if name == "P":
             self._pyr = ph.pyramid(self._img_l)
+        elif name == "flags":
+            booted, _, any_boot, any_failed = device_flags_batched(
+                self.state)
+            self._booted.copy_(booted)
+            any_b = booted.any()
+            mixed = any_b & any_boot
+            no = torch.zeros_like(any_b)
+            self._pred.copy_(torch.stack([~any_b, any_b & ~any_failed,
+                                          any_failed, no, no, mixed, any_b,
+                                          mixed]))
+        elif name == "boot":
+            st, out = ph.boot(self.state, self._pyr, self._img_r)
+            _copy_into(self._s, st)
+            self._write_out(out)
         elif name in ("A_ok", "A_fail"):
             st, ctx = ph.track(self.state, self._pyr, self._img_r,
                                any_failed=name == "A_fail")
             _copy_into(self._s1, st)
-            if self._ctx is None:
-                self._ctx_like = ctx
-                self._ctx = [torch.empty_like(x) for x in _leaves(ctx)]
-            _copy_into(self._ctx, ctx)
+            self._write_ctx(ctx)
+            *_, any_kf, any_loop = device_decisions_batched(
+                self.cfg, st, ctx, self._booted)
+            self._set_preds(K=any_kf & ~any_loop, K_loop=any_loop)
         elif name in ("K", "K_loop"):
             _copy_into(self._s1, ph.kf(self._staged(), self._pyr,
                                        self._img_r, self.context,
                                        run_loop=name == "K_loop"))
-        else:
+        elif name == "save":
+            _copy_into(self._before, self.state)
+        elif name == "B":
             st, out = ph.post(self._staged(), self._pyr, self.context)
             _copy_into(self._s, st)
-            if self._out is None:
-                self._out = FrameOut(*(torch.empty_like(x) for x in out))
-            _copy_into(list(self._out), out)
-
-    _staged = GraphedStep._staged
-    context = GraphedStep.context
-    tracked = GraphedStep.tracked
-    _run = GraphedStep._run
-    load = GraphedStep.load
+            self._write_out(out)
+        else:
+            # the bootstrap reads S as it was before B
+            before = _tree(self.state, iter(self._before))
+            st, out = ph.boot(before, self._pyr, self._img_r,
+                              (self.state, self._out))
+            _copy_into(self._s, st)
+            self._write_out(out)
 
     def reset(self) -> None:
         """Copy the initial states into the live buffers."""
         self.load(init_states(self.cfg, self.B, self.device))
 
     def __call__(self, states: SlamState, img_l: torch.Tensor,
-                 img_r: torch.Tensor,
-                 flags: Optional[List[HostFlags]] = None
-                 ) -> Tuple[SlamState, FrameOut, List[HostFlags]]:
+                 img_r: torch.Tensor) -> Tuple[SlamState, FrameOut]:
         if states is not self.state:
             self.load(states)
-        if flags is None:
-            flags = host_flags_batched(self.state)
-        if len(flags) != self.B:
-            raise ValueError(f"{len(flags)} sequences: the step was made "
-                             f"for {self.B}")
-        for buf, img in ((self._img_l, img_l), (self._img_r, img_r)):
-            if tuple(img.shape) != tuple(buf.shape):
-                raise ValueError(f"images {tuple(img.shape)}: the step was "
-                                 f"made for {tuple(buf.shape)}")
-            buf.copy_(img)
-        self._run("P")
-        booted = [f.booted for f in flags]
-        if not any(booted):
-            st, out = self._phases.boot(self.state, self._pyr, self._img_r)
-            _copy_into(self._s, st)
-            return self.state, out, [HostFlags(True, True)] * self.B
-        failed = not all(f.tracking_ok for f in flags if f.booted)
-        self._run("A_fail" if failed else "A_ok")
-        decisions = _read_decisions(self.cfg, *self.tracked)
-        ours = [d for d, b in zip(decisions, booted) if b]
-        if any(need_kf for need_kf, _, _ in ours):
-            self._run("K_loop" if any(loop for _, _, loop in ours) else "K")
-        before = None
-        if not all(booted):      # boot reads S as it was before B
-            before = _tree(self.state, iter([x.clone() for x in self._s]))
-        self._run("B")
-        out = self._out
-        if before is not None:
-            st, out = self._phases.boot(before, self._pyr, self._img_r,
-                                        (self.state, self._out))
-            _copy_into(self._s, st)
-        return self.state, out, [HostFlags(True, ok or not b) for
-                                 (_, ok, _), b in zip(decisions, booted)]
+        self._launch(img_l, img_r)
+        return self.state, self._out
 
 
 def make_graphed_step(cfg: SvoConfig, device="cuda") -> GraphedStep:
-    """The per-frame step on static buffers, captured as CUDA graphs on a
-    CUDA device (run directly on the CPU):
-    ``step(state, img_l, img_r, flags=None) -> (state, FrameOut, flags)``.
-    The returned state is ``step.state``, the live buffers; a ``state``
-    argument that is not those is copied into them first."""
+    """The per-frame step on static buffers, captured as one frame graph
+    with device-side branches on a CUDA device (its plain version on the
+    CPU): ``step(state, img_l, img_r) -> (state, FrameOut)``. The returned
+    state is ``step.state``, the live buffers; a ``state`` argument that
+    is not those is copied into them first."""
     return GraphedStep(cfg, device)
 
 
 def make_graphed_batched_step(cfg: SvoConfig, B: int, device="cuda"
                               ) -> GraphedBatchedStep:
     """The counterpart of ``step.make_batched_step`` on one stacked set of
-    static buffers, its phases captured once for the whole batch:
-    ``bstep(states, img_l, img_r, flags=None) -> (states, outs, flags)``
-    with one host sync per batched frame."""
+    static buffers, its bodies captured once for the whole batch into one
+    frame graph: ``bstep(states, img_l, img_r) -> (states, outs)`` with no
+    host read."""
     return GraphedBatchedStep(cfg, B, device)
 
 
 __all__ = ["make_graphed_step", "make_graphed_batched_step", "GraphedStep",
            "GraphedBatchedStep", "capture", "scan", "kernel_names",
-           "counter_of", "GRAPHS",
-           "KERNELS"]
+           "counter_of", "settle", "GRAPHS", "BATCH_GRAPHS", "KERNELS",
+           "NOT_IN_A_BODY"]

@@ -7,10 +7,12 @@
 graph-captured step (``graphed.make_graphed_step``), as the reference's
 runners run the jitted, state-donating one; ``run_sequence_batched`` runs
 its batched form (``graphed.make_graphed_batched_step``), as the
-reference's runs the jitted batched step. Every frame after a sequence's
-bootstrap replays graphs. Poses and metrics stay on the device until
-read, so a frame costs the step's single host sync and nothing more (one
-per batched frame for the batched runner).
+reference's runs the jitted batched step. Every frame, the bootstrap
+included, is one launch of the step's frame graph, whose branches run on
+the device. Poses and metrics stay on the device until read:
+``run_sequence_scan`` and ``run_sequence_batched`` read nothing between
+frames (the reference's "zero host involvement between frames"), and
+``StereoSvo`` reads only when asked.
 """
 
 from __future__ import annotations
@@ -24,7 +26,6 @@ from ..config import SvoConfig
 from ..device import resolve
 from .graphed import make_graphed_batched_step, make_graphed_step
 from .state import FrameOut, SlamState
-from .step import HostFlags, host_flags
 
 
 class StereoSvo:
@@ -38,7 +39,6 @@ class StereoSvo:
         self.cfg = cfg
         self.device = device
         self._step = make_graphed_step(cfg, device)
-        self._flags = HostFlags(booted=False, tracking_ok=True)
         self._trajectory: List[torch.Tensor] = []
         self._metrics: List[FrameOut] = []
 
@@ -46,8 +46,7 @@ class StereoSvo:
     def state(self) -> SlamState:
         """The live state: the step's own buffers, which the next frame
         overwrites (as donation does in JAX) — clone what is kept across
-        frames. Assigning copies into them; set a restored state with
-        :meth:`resume`, which also re-reads the host's flags."""
+        frames. Assigning copies into them, as :meth:`resume` does."""
         return self._step.state
 
     @state.setter
@@ -56,12 +55,12 @@ class StereoSvo:
 
     def new_image(self, left, right) -> FrameOut:
         """Process one stereo pair ((H,W) arrays or tensors in [0, 255]).
-        The FrameOut returned is the engine's own copy."""
+        The FrameOut returned is the engine's own copy, on the device: the
+        step reads nothing back."""
         left = torch.as_tensor(left, dtype=torch.float32, device=self.device)
         right = torch.as_tensor(right, dtype=torch.float32,
                                 device=self.device)
-        _, out, self._flags = self._step(self._step.state, left, right,
-                                         self._flags)
+        _, out = self._step(self._step.state, left, right)
         out = FrameOut(*(x.clone() for x in out))
         self._trajectory.append(out.T_wc)
         self._metrics.append(out)
@@ -69,16 +68,14 @@ class StereoSvo:
 
     def resume(self, state: SlamState) -> None:
         """Continue from ``state`` (a checkpoint loaded onto this engine's
-        device), copied into the live buffers: the host's flags are read
-        from it, one host sync."""
+        device), copied into the live buffers."""
         self._step.load(state)
-        self._flags = host_flags(self._step.state)
 
     @property
     def tracking_ok(self) -> bool:
-        """Whether the last frame tracked: the host's copy of the flag,
-        read in the step's one sync (no device read here)."""
-        return self._flags.tracking_ok
+        """Whether the last frame tracked: the live state's flag, read
+        from the device (one read)."""
+        return bool(self._step.state.tracking_ok)
 
     @property
     def pose(self) -> np.ndarray:
@@ -108,29 +105,32 @@ def _images(frames, device: torch.device) -> torch.Tensor:
                            device=device).contiguous()
 
 
-def _stack(items):
-    """Stack a list of NamedTuples (nested ones too) field by field."""
-    first = items[0]
-    if isinstance(first, tuple):
-        return type(first)(*(_stack(list(f)) for f in zip(*items)))
-    return torch.stack(items)
+def _rows(out: FrameOut, lead: Tuple[int, ...]) -> FrameOut:
+    """A FrameOut like ``out`` with the leading axes ``lead`` before every
+    field, allocated on its device."""
+    return FrameOut(*(torch.empty(lead + tuple(x.shape), dtype=x.dtype,
+                                  device=x.device) for x in out))
 
 
 def run_sequence_scan(cfg: SvoConfig, lefts, rights, device="cuda"
                       ) -> Tuple[SlamState, FrameOut]:
     """Whole-sequence processing: lefts/rights (T,H,W) in, (final state,
     FrameOut stacked over T) out, everything on the device, through the
-    graph-captured step."""
+    graph-captured step. Each frame is a device copy of its images into
+    the step's, one launch of its frame graph and a device copy of its
+    FrameOut into row t of the stacked one: no host read between frames,
+    as the reference's ``lax.scan``."""
     device = resolve(device)
     lefts, rights = _images(lefts, device), _images(rights, device)
     step = make_graphed_step(cfg, device)
-    state = step.state
-    flags = HostFlags(booted=False, tracking_ok=True)
-    outs = []
-    for t in range(lefts.shape[0]):
-        state, out, flags = step(state, lefts[t], rights[t], flags)
-        outs.append(FrameOut(*(x.clone() for x in out)))
-    return state, _stack(outs)
+    T = lefts.shape[0]
+    outs = None
+    for t in range(T):
+        _, out = step(step.state, lefts[t], rights[t])
+        if outs is None:
+            outs = _rows(out, (T,))
+        torch._foreach_copy_([x[t] for x in outs], list(out))
+    return step.state, outs
 
 
 def run_sequence_batched(cfg: SvoConfig, lefts, rights, device="cuda"
@@ -139,17 +139,16 @@ def run_sequence_batched(cfg: SvoConfig, lefts, rights, device="cuda"
     final states stacked (every field with a leading B axis) and a
     FrameOut with leading (B,T) axes out, through the graph-captured
     batched step (:func:`graphed.make_graphed_batched_step`; captured here,
-    once), whose every phase runs once for the whole batch: one host sync
-    per batched frame after the first."""
+    once), whose every phase runs once for the whole batch: one launch of
+    its frame graph a batched frame, and no host read between frames."""
     device = resolve(device)
     lefts, rights = _images(lefts, device), _images(rights, device)
     B, T = lefts.shape[:2]
     bstep = make_graphed_batched_step(cfg, B, device)
-    states = bstep.state
-    flags = [HostFlags(booted=False, tracking_ok=True)] * B
-    outs = []
+    outs = None
     for t in range(T):
-        states, out, flags = bstep(states, lefts[:, t], rights[:, t], flags)
-        outs.append(FrameOut(*(x.clone() for x in out)))
-    outs = _stack(outs)        # (T,B,…) → (B,T,…)
-    return states, FrameOut(*(x.transpose(0, 1) for x in outs))
+        _, out = bstep(bstep.state, lefts[:, t], rights[:, t])
+        if outs is None:
+            outs = _rows(out, (T,))       # (T,B,…), as (B,T,…) below
+        torch._foreach_copy_([x[t] for x in outs], list(out))
+    return bstep.state, FrameOut(*(x.transpose(0, 1) for x in outs))

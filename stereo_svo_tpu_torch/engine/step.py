@@ -9,7 +9,11 @@ keyframe frames ``keyframe.insert``, window BA and, every
 alignment on B2, B3, B4 and a pose graph) → template rebuild (B3).
 
 Control flow. The reference keeps every branch on the device with
-``lax.cond``; here they are host ``if``s:
+``lax.cond``. The graph-captured step (``engine/graphed.py``) does too: its
+frame graph's conditional nodes branch on :func:`device_flags` and
+:func:`device_decisions` (and their batched forms), with no host read.
+The eager ``make_step`` and ``make_batched_step`` here are its plain
+version, and in them the branches are host ``if``s:
 
 * boot vs track: the host knows whether a keyframe exists (``HostFlags``);
 * the rotated relocalisation variants: gated by the previous frame's
@@ -531,6 +535,47 @@ def _read_decisions(cfg: SvoConfig, st: SlamState, ctx: TrackCtx
     return out
 
 
+def device_flags(state: SlamState) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(booted, prev_ok): :func:`host_flags` as bool tensors on the state's
+    device, with no read — 0-dim for one sequence, (B,) per sequence for a
+    stacked state."""
+    return state.kf_valid.any(-1), state.tracking_ok
+
+
+def device_decisions(cfg: SvoConfig, st: SlamState, ctx: TrackCtx
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(need_kf, ok, run the online loop at this keyframe):
+    :func:`_read_decisions` as bool tensors on the device, with no read —
+    0-dim for one sequence, (B,) per sequence for a batch's stacked state
+    and TrackCtx."""
+    need_kf = ctx.need_kf
+    if cfg.online_loop_every > 0:
+        run_loop = need_kf & loop_due(cfg, st.mem_next, st.last_loop_mem)
+    else:
+        run_loop = torch.zeros_like(need_kf)
+    return need_kf, ctx.ok, run_loop
+
+
+def device_flags_batched(states: SlamState):
+    """:func:`device_flags` of a stacked state, per sequence, with the
+    batch's conds of the reference's batched step: (booted (B,),
+    prev_ok (B,), any sequence to bootstrap — ``jnp.any(is_boot)`` —, any
+    booted sequence whose last frame failed: the rotated relocalisation
+    variants)."""
+    booted, prev_ok = device_flags(states)
+    return booted, prev_ok, (~booted).any(), (booted & ~prev_ok).any()
+
+
+def device_decisions_batched(cfg: SvoConfig, sts: SlamState, ctx: TrackCtx,
+                             booted: torch.Tensor):
+    """:func:`device_decisions` of a batch, per sequence, with the batch's
+    conds over its booted sequences: (need_kf, ok, run_loop, each (B,);
+    any keyframe — ``jnp.any(need_kf)`` —, the online loop due in any)."""
+    need_kf, ok, run_loop = device_decisions(cfg, sts, ctx)
+    return (need_kf, ok, run_loop, (booted & need_kf).any(),
+            (booted & run_loop).any())
+
+
 def make_step(cfg: SvoConfig):
     """The per-frame step for a static config:
     ``step(state, img_l, img_r, flags=None) -> (state, FrameOut, flags)``.
@@ -692,4 +737,6 @@ def make_batched_step(cfg: SvoConfig):
 __all__ = ["make_step", "make_batched_step", "make_phases",
            "make_batched_phases", "BatchedPhases", "run_window_ba",
            "run_online_loop", "loop_due", "world_points", "HostFlags",
-           "host_flags", "host_flags_batched", "tree_where"]
+           "host_flags", "host_flags_batched", "device_flags",
+           "device_decisions", "device_flags_batched",
+           "device_decisions_batched", "tree_where"]

@@ -5,7 +5,7 @@ multi-rank dry run — the port's counterpart of the repository's
 ``entry()`` returns the flagship per-frame step (the SVO state machine at
 the full EuRoC geometry) with example arguments on the chosen device: the
 graph-captured step (``engine/graphed.py``), as the reference returns a
-jitted function.
+jitted function: ``step(state, left, right) -> (state, FrameOut)``.
 
 ``dryrun_multichip(n)`` starts n CPU ranks of this machine in one ``gloo``
 group and runs, on tiny shapes, ONE bootstrap step of the multi-sequence
@@ -37,12 +37,12 @@ def _tiny_cfg(width=128, height=96) -> SvoConfig:
 
 def entry(device="cuda"):
     """(step, example_args): the single-device per-frame step for
-    ``SvoConfig()`` (752×480), its graphs captured on a CUDA device, and
-    ``(state, left, right, flags)`` for its first call, the frames seeded
-    random noise."""
+    ``SvoConfig()`` (752×480), its frame graph captured on a CUDA device
+    (one launch a frame, its branches on the device), and
+    ``(state, left, right)`` for its first call, the frames seeded random
+    noise."""
     from .engine.graphed import make_graphed_step
     from .engine.state import init_state
-    from .engine.step import HostFlags
 
     device = resolve(device)
     cfg = SvoConfig()  # full EuRoC-geometry flagship config (752x480)
@@ -54,8 +54,7 @@ def entry(device="cuda"):
                         device=device)
     right = torch.tensor(rng.uniform(0, 255, (h, w)), dtype=torch.float32,
                          device=device)
-    return fn, (state, left, right, HostFlags(booted=False,
-                                              tracking_ok=True))
+    return fn, (state, left, right)
 
 
 def _dryrun_rank(rank: int, n: int) -> bool:

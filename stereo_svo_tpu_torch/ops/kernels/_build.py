@@ -45,6 +45,16 @@ _SIGNATURES = {
     "svo_gn_scratch_floats": [],
     "svo_gn_accumulate": [_P, _L, _I, _I, _P, _L, _P, _L, _P, _L, _P, _L,
                           _I, _I, _P, _L, _P, _L, _F, _P, _P, _P, _I, _P],
+    # the frame graph's assembly (csrc/frame_graph.cu)
+    "svo_graph_create": [_P],
+    "svo_graph_destroy": [_P],
+    "svo_graph_cond_handle": [_P, _P],
+    "svo_graph_add_child": [_P, _P, _P],
+    "svo_graph_add_if": [_P, _P, ctypes.c_ulonglong, _P],
+    "svo_graph_add_set": [_P, _P, _P, _P, _I],
+    "svo_graph_instantiate": [_P, _P],
+    "svo_graph_launch": [_P, _P],
+    "svo_graph_exec_destroy": [_P],
 }
 MAX_PROBLEMS = 65535   # problems one launch takes (the grid's y or z size)
 F32 = torch.float32

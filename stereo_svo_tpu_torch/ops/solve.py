@@ -16,11 +16,11 @@ from torch._C._functorch import is_batchedtensor
 
 @contextlib.contextmanager
 def batched_linalg(x: torch.Tensor):
-    """Around a factorisation or solve that ``torch.func.vmap`` batches on
-    CUDA (``x`` a batched CUDA tensor): PyTorch's linear-algebra backend
-    set to cuSOLVER (with cuBLAS's batched LU) for the call and restored
-    after it. Its default sends batched ``cholesky_solve`` and a batched LU
-    above 128 rows to MAGMA, whose routines a CUDA graph does not capture;
+    """Around a factorisation that ``torch.func.vmap`` batches on CUDA
+    (``x`` a batched CUDA tensor): PyTorch's linear-algebra backend set to
+    cuSOLVER (with cuBLAS's batched LU) for the call and restored after
+    it. Its default sends some batched factorisations (a batched LU above
+    128 rows) to MAGMA, whose routines a CUDA graph does not capture;
     cuSOLVER's and cuBLAS's run on the stream, sync nothing and capture.
     A call that is not batched (the single-sequence step) keeps the
     default backend, and with it its results bit for bit. The setting is
@@ -34,6 +34,30 @@ def batched_linalg(x: torch.Tensor):
         yield
     finally:
         torch.backends.cuda.preferred_linalg_library(before)
+
+
+def cholesky_solve_upper(U: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """Solve (UᵀU) x = rhs for an upper Cholesky factor U (…,n,n), rhs
+    (…,n,k): two triangular solves, cuBLAS's trsm on CUDA. Not
+    ``torch.cholesky_solve``: at batch 1 it calls cuSOLVER's potrs, which
+    under graph capture allocates its scratch with a stream-ordered
+    allocation, a node a conditional graph body may not hold."""
+    y = torch.linalg.solve_triangular(U.mT, rhs, upper=False)
+    return torch.linalg.solve_triangular(U, y, upper=True)
+
+
+def lu_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve A x = b, A (…,n,n), b (…,n), by LU with partial pivoting
+    (``torch.linalg.lu_factor_ex``: no check, no host sync), then the row
+    permutation and two triangular solves (cuBLAS's trsm on CUDA). Not
+    ``torch.linalg.solve_ex`` or ``lu_solve``: their cuSOLVER getrs under
+    graph capture allocates its scratch with a stream-ordered allocation,
+    a node a conditional graph body may not hold."""
+    LU, pivots, _ = torch.linalg.lu_factor_ex(A)
+    P, L, U = torch.lu_unpack(LU, pivots)
+    y = torch.linalg.solve_triangular(L, P.mT @ b[..., None], upper=False,
+                                      unitriangular=True)
+    return torch.linalg.solve_triangular(U, y, upper=True)[..., 0]
 
 
 def inv2x2(A: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

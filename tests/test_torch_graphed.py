@@ -1,23 +1,26 @@
 """The graph-captured step (``engine/graphed.py``) against the eager step
 and the JAX package's jitted ``StereoSvo``.
 
-On the CPU the graphed step runs its phase bodies directly on its static
-buffers, so every copy into them — into the staged state ``S'``, from
-``S'`` back into itself (the keyframe phase) and back into the live state
-``S`` — is exercised here: it must equal the eager ``step.make_step`` bit
-for bit over frames that take every branch — the bootstrap, keyframe
-frames (the ``K`` body: insertion and window BA), with the online loop on
-a due keyframe (the ``K_loop`` body), a blackout of two frames (the
-``A_fail`` variant on the frame after a failure), a ``resume`` from a
-mid-run state and a ``svo.state =`` assignment.
+On the CPU the graphed step runs the frame graph's plain version: its
+bodies directly on its static buffers, each conditional one where its
+device predicate holds. So every copy into the buffers — into the staged
+state ``S'``, from ``S'`` back into itself (the keyframe phase) and back
+into the live state ``S`` — and every predicate is exercised here: it
+must equal the eager ``step.make_step`` bit for bit over frames that take
+every branch — the bootstrap (the ``boot`` body), keyframe frames (the
+``K`` body: insertion and window BA), with the online loop on a due
+keyframe (the ``K_loop`` body), a blackout of two frames (the ``A_fail``
+variant on the frame after a failure), a ``resume`` from a mid-run state
+and a ``svo.state =`` assignment — and each body's run counter must
+equal what the FrameOut flags imply.
 
-The ``cuda`` tests (skipped without a card) capture the graphs and hold
-the replays to the eager step on the card, bit for bit, across keyframe
-frames and a due online loop; replay twice in a row (B4's ticket counter
-resets itself) and add each graph's kernel nodes, read through libcuda,
-to the launch counters; and show that a body that synchronises, or a
-counted launch that the graph does not hold, makes capture raise, with no
-eager fallback. On the card's
+The ``cuda`` tests (skipped without a card) capture the bodies into the
+frame graph and hold its launches to the eager step on the card, bit for
+bit, across keyframe frames and a due online loop; launch the same frame
+twice (B4's ticket counter resets itself) and add each body's kernel
+nodes, read through libcuda, times its runs to the launch counters; and
+show that a body that synchronises, or a counted launch that the body
+does not hold, makes capture raise, with no eager fallback. On the card's
 machine, which has no JAX: ``python -m pytest --noconftest -m cuda
 tests/test_torch_graphed.py``.
 
@@ -90,22 +93,32 @@ def _clone(tree):
                         for v in tree))
 
 
+def _eager(cfg):
+    """The eager ``step.make_step`` with the graphed step's signature,
+    ``step(state, img_l, img_r) -> (state, FrameOut)``: its host flags
+    read from the state on every frame."""
+    inner = step_mod.make_step(cfg)
+
+    def step(state, img_l, img_r):
+        state, out, _ = inner(state, img_l, img_r)
+        return state, out
+    return step
+
+
 def _run(step, state, lefts, rights, resume_state=None):
     """Drive ``step`` (eager or graphed) over the frames, with a resume
     from ``resume_state`` before RESUME_AT (when given) and the nudge
     assigned before ASSIGN_AT; (per-frame FrameOuts, the state kept at
     RESUME_AT, the final state), every output cloned."""
-    flags = step_mod.HostFlags(booted=False, tracking_ok=True)
     outs, kept = [], None
     for i in range(len(lefts)):
         if i == RESUME_AT:
             kept = _clone(state)
             if resume_state is not None:
                 state = resume_state
-                flags = step_mod.host_flags(state)
         if i == ASSIGN_AT:
             state = _nudge(state)
-        state, out, flags = step(state, lefts[i], rights[i], flags)
+        state, out = step(state, lefts[i], rights[i])
         outs.append(_clone(out))
     return outs, kept, _clone(state)
 
@@ -130,8 +143,7 @@ def frames():
 @pytest.fixture(scope="module")
 def eager_run(frames):
     lefts, rights, _ = frames
-    return _run(step_mod.make_step(CFG), init_state(CFG, "cpu"), lefts,
-                rights)
+    return _run(_eager(CFG), init_state(CFG, "cpu"), lefts, rights)
 
 
 def test_the_frames_take_every_branch(eager_run):
@@ -161,6 +173,23 @@ def test_graphed_cpu_equals_eager_bit_for_bit(frames, eager_run):
     assert "K_loop" not in step.graph_names
 
 
+def test_body_counters_equal_the_flags(frames, eager_run):
+    """Each body's run counter, counted on the device, against what the
+    FrameOut flags imply: one bootstrap, K plus K_loop the keyframes after
+    it, A_fail the frames after a failed frame, B every other frame."""
+    lefts, rights, _ = frames
+    step = graphed.make_graphed_step(CFG, "cpu")
+    _run(step, init_state(CFG, "cpu"), lefts, rights)
+    ok = np.array([bool(o.tracking_ok) for o in eager_run[0]])
+    kf = np.array([bool(o.kf_inserted) for o in eager_run[0]])
+    runs = step.replays
+    assert runs["P"] == runs["flags"] == N_FRAMES
+    assert runs["boot"] == 1
+    assert runs["K"] + runs["K_loop"] == kf[1:].sum()
+    assert runs["A_fail"] == (~ok[1:-1]).sum() == len(BLACK)
+    assert runs["A_ok"] + runs["A_fail"] == runs["B"] == N_FRAMES - 1
+
+
 def _loop_calls(monkeypatch):
     """Count the calls of ``step.run_online_loop`` (``kf_phase`` looks it
     up at each call) without reading the device: a call may be captured."""
@@ -182,8 +211,8 @@ def test_graphed_cpu_online_loop_through_k_loop_bit_for_bit(frames,
     eager step, and the replays count the keyframe and loop frames."""
     lefts, rights, _ = frames
     calls = _loop_calls(monkeypatch)
-    eager = _run(step_mod.make_step(LOOP_CFG), init_state(LOOP_CFG, "cpu"),
-                 lefts, rights)
+    eager = _run(_eager(LOOP_CFG), init_state(LOOP_CFG, "cpu"), lefts,
+                 rights)
     n_loop = len(calls)
     step = graphed.make_graphed_step(LOOP_CFG, "cpu")
     got = _run(step, init_state(LOOP_CFG, "cpu"), lefts, rights)
@@ -314,10 +343,8 @@ def test_a_dropped_step_is_freed_by_reference_counting(frames):
             step = make()
             ref = weakref.ref(step)
             if isinstance(step, graphed.GraphedStep):
-                flags = None
                 for i in range(2):
-                    _, _, flags = step(step.state, lefts[i], rights[i],
-                                       flags)
+                    step(step.state, lefts[i], rights[i])
             del step
             assert ref() is None
     finally:
@@ -346,8 +373,7 @@ def cuda_device():
 @pytest.mark.cuda
 def test_graphed_on_the_card_equals_eager_bit_for_bit(cuda_device):
     lefts, rights, _ = _frames(cuda_device)
-    eager = _run(step_mod.make_step(CFG), init_state(CFG, cuda_device),
-                 lefts, rights)
+    eager = _run(_eager(CFG), init_state(CFG, cuda_device), lefts, rights)
     step = graphed.make_graphed_step(CFG, cuda_device)
     # the online loop is off: no K_loop
     assert set(step.graphs) == set(graphed.GRAPHS) - {"K_loop"}
@@ -366,8 +392,8 @@ def test_graphed_on_the_card_online_loop_bit_for_bit(cuda_device,
     solve_ex under capture), bit for bit the eager step."""
     lefts, rights, _ = _frames(cuda_device)
     calls = _loop_calls(monkeypatch)
-    eager = _run(step_mod.make_step(LOOP_CFG),
-                 init_state(LOOP_CFG, cuda_device), lefts, rights)
+    eager = _run(_eager(LOOP_CFG), init_state(LOOP_CFG, cuda_device), lefts,
+                 rights)
     n_loop = len(calls)
     step = graphed.make_graphed_step(LOOP_CFG, cuda_device)
     assert set(step.graphs) == set(graphed.GRAPHS)
@@ -383,28 +409,34 @@ def test_graphed_on_the_card_online_loop_bit_for_bit(cuda_device,
 @pytest.mark.cuda
 def test_keyframe_graphs_hold_their_kernels(cuda_device):
     """K holds the insertion's B3 launches (the stereo match); K_loop adds
-    the online loop's B2, B3 and B4 at the thumbnail. Each graph's kernel
-    nodes equal what its capture counted (capture raises otherwise), and a
-    replay adds them to the counters."""
+    the online loop's B2, B3 and B4 at the thumbnail. Each body's kernel
+    nodes equal what its capture counted (capture raises otherwise), and
+    settling the counters adds each body's kernel nodes times its runs."""
+    lefts, rights, _ = _frames(cuda_device)
     step = graphed.make_graphed_step(LOOP_CFG, cuda_device)
     k, kl = step.kernel_nodes["K"], step.kernel_nodes["K_loop"]
     assert k["sample_patches"] > 0 and k["halfsample"] == 0
     assert all(kl[x] > k[x]
                for x in ("gradients", "sample_patches", "gn_accumulate"))
-    for name in ("K", "K_loop"):
-        c0 = graphed._counts()
-        step._run(name)
-        c1 = graphed._counts()
-        assert {key: c1[key] - c0[key] for key in c0} \
-            == step.kernel_nodes[name]
-    torch.cuda.synchronize()
+    graphed.settle()
+    c0 = graphed._counts()
+    for i in range(len(lefts)):
+        step(step.state, lefts[i], rights[i])
+    graphed.settle()
+    c1 = graphed._counts()
+    runs = step.replays
+    assert runs["K_loop"] >= 1 and runs["K"] >= 1
+    assert {key: c1[key] - c0[key] for key in c0} == {
+        key: sum(runs[g] * step.kernel_nodes[g][key] for g in step.graphs)
+        for key in c0}
 
 
 @pytest.mark.cuda
 def test_replays_count_launches_and_repeat(cuda_device):
-    """Two replays in a row of the same inputs give the same result (B4's
-    ticket counter is back at 0 after each call) and add each graph's
-    kernel nodes, read through libcuda, each time."""
+    """The same frame launched twice from the same state gives the same
+    result (B4's ticket counter is back at 0 after each call) and adds
+    the kernel nodes of the bodies it ran, read through libcuda, each
+    time."""
     lefts, rights, _ = _frames(cuda_device)
     step = graphed.make_graphed_step(CFG, cuda_device)
     nodes = step.kernel_nodes
@@ -413,23 +445,36 @@ def test_replays_count_launches_and_repeat(cuda_device):
     assert step.nodes["P"]["kernel"] == 2
     assert nodes["A_ok"]["gn_accumulate"] > 0
     assert nodes["A_fail"]["gn_accumulate"] > 0
-    state, _, _ = step(step.state, lefts[0], rights[0])
+    state, _ = step(step.state, lefts[0], rights[0])
     before = _clone(state)
     results = []
     for _ in range(2):
         step.load(before)
-        c0 = graphed._counts()
-        step._img_l.copy_(lefts[1])
-        step._img_r.copy_(rights[1])
-        step._run("P")
-        step._run("A_ok")
-        c1 = graphed._counts()
-        torch.cuda.synchronize()
-        results.append(_clone(step.context))
+        graphed.settle()
+        c0, r0 = graphed._counts(), step.replays
+        _, out = step(step.state, lefts[1], rights[1])
+        graphed.settle()
+        c1, r1 = graphed._counts(), step.replays
+        ran = [g for g in step.graphs if r1[g] > r0[g]]
+        assert {"P", "flags", "A_ok", "B"} <= set(ran) and "boot" not in ran
+        assert all(r1[g] - r0[g] == 1 for g in ran)
+        results.append(_clone(out))
         assert {k: c1[k] - c0[k] for k in c0} == {
-            k: nodes["P"][k] + nodes["A_ok"][k] for k in c0}
+            k: sum(nodes[g][k] for g in ran) for k in c0}
     for a, b in zip(*results):
         assert torch.equal(a, b)
+
+
+def _patched_body(name, extra):
+    """``GraphedStep._run_body`` with ``extra(step)`` run before body
+    ``name``."""
+    orig = graphed.GraphedStep._run_body
+
+    def body(self, which):
+        if which == name:
+            extra(self)
+        return orig(self, which)
+    return orig, body
 
 
 @pytest.mark.cuda
@@ -443,18 +488,15 @@ def test_capture_refuses_a_body_that_syncs(cuda_device):
     with pytest.raises(RuntimeError):
         graphed.capture(lambda: float(x.sum()), pool, side)
     counts = dict(align_kernel.LAUNCHES), dict(pyramid_kernel.LAUNCHES)
-    orig = graphed.GraphedStep._body_b
-
-    def syncing_body(self):
-        bool(self.state.tracking_ok)            # a host read in a body
-        return orig(self)
-
-    graphed.GraphedStep._body_b = syncing_body
+    # a host read in a body
+    orig, body = _patched_body("B", lambda self: bool(
+        self.state.tracking_ok))
+    graphed.GraphedStep._run_body = body
     try:
         with pytest.raises(RuntimeError):
             graphed.make_graphed_step(CFG, cuda_device)
     finally:
-        graphed.GraphedStep._body_b = orig
+        graphed.GraphedStep._run_body = orig
     # the counters are as they were: neither warm-up nor capture counts
     assert (dict(align_kernel.LAUNCHES), dict(pyramid_kernel.LAUNCHES)) \
         == counts
@@ -462,18 +504,16 @@ def test_capture_refuses_a_body_that_syncs(cuda_device):
 
 @pytest.mark.cuda
 def test_capture_refuses_counts_the_graph_does_not_hold(cuda_device):
-    """A launch the wrappers count but the graph does not hold (here a
+    """A launch the wrappers count but the body does not hold (here a
     count with no kernel behind it) makes capture raise: the counts a
-    replay adds are the graph's own kernel nodes."""
-    orig = graphed.GraphedStep._body_b
-
-    def miscounting_body(self):
+    frame adds are the bodies' own kernel nodes."""
+    def miscount(self):
         align_kernel.LAUNCHES["sample_patches"] += 1
-        return orig(self)
 
-    graphed.GraphedStep._body_b = miscounting_body
+    orig, body = _patched_body("B", miscount)
+    graphed.GraphedStep._run_body = body
     try:
         with pytest.raises(RuntimeError, match="graph B holds"):
             graphed.make_graphed_step(CFG, cuda_device)
     finally:
-        graphed.GraphedStep._body_b = orig
+        graphed.GraphedStep._run_body = orig

@@ -7,9 +7,12 @@ frames, so that on the frame after them the batch runs the ``A_fail``
 variant (the rotated relocalisation variants count for sequence 1 only)
 while sequence 0 inserts a keyframe (``K``, kept for sequence 0 only) —
 one batched frame mixes every selection. On the CPU the graphed batched
-step runs the same ``vmap``ped bodies on its stacked static buffers: it
-must equal the eager batched step bit for bit, with one host read of the
-decisions per batched frame after the bootstrap.
+step runs its frame graph's plain version, the same ``vmap``ped bodies on
+its stacked static buffers under the batch's device predicates: it must
+equal the eager batched step bit for bit, with the decisions of the whole
+batch written once per batched frame after the bootstrap, also for a
+batch that mixes booted and unbooted sequences (the ``save`` and
+``boot_mix`` bodies).
 
 The ``cuda`` tests (skipped without a card) hold, on the card, the graphed
 batched step to the eager one bit for bit, its graphs' kernel nodes to at
@@ -56,13 +59,12 @@ def _clone(tree):
 
 
 def _run(bstep, states, lefts, rights):
-    """Drive a batched step over the (B,T,H,W) frames: (per-frame stacked
+    """Drive a batched step (eager: its host flags read from the states on
+    every frame; graphed) over the (B,T,H,W) frames: (per-frame stacked
     FrameOuts, the final stacked state), every output cloned."""
-    flags = [step_mod.HostFlags(booted=False, tracking_ok=True)] * \
-        lefts.shape[0]
     outs = []
     for t in range(lefts.shape[1]):
-        states, out, flags = bstep(states, lefts[:, t], rights[:, t], flags)
+        states, out = bstep(states, lefts[:, t], rights[:, t])[:2]
         outs.append(_clone(out))
     return outs, _clone(states)
 
@@ -109,18 +111,18 @@ def test_the_batch_mixes_every_variant(eager_run):
 def test_graphed_batched_cpu_equals_eager_bit_for_bit(frames, eager_run,
                                                       monkeypatch):
     """Every FrameOut and the final states equal the eager batched step's
-    bit for bit; the decisions of the whole batch are read once per
-    batched frame after the bootstrap; each graph is replayed once for the
-    whole batch, A_fail on the frames after a failure in any sequence."""
+    bit for bit; the decisions of the whole batch are taken once per
+    batched frame after the bootstrap; each body runs once for the whole
+    batch, A_fail on the frames after a failure in any sequence."""
     lefts, rights = frames
     reads = []
-    orig = graphed._read_decisions
+    orig = graphed.device_decisions_batched
 
-    def counted(cfg, st, ctx):
+    def counted(cfg, st, ctx, booted):
         reads.append(st.T_cw.shape[0])
-        return orig(cfg, st, ctx)
+        return orig(cfg, st, ctx, booted)
 
-    monkeypatch.setattr(graphed, "_read_decisions", counted)
+    monkeypatch.setattr(graphed, "device_decisions_batched", counted)
     bstep = graphed.make_graphed_batched_step(CFG, len(SEQS), "cpu")
     got = _run(bstep, bstep.state, lefts, rights)
     _assert_equal(got, eager_run)
@@ -133,6 +135,38 @@ def test_graphed_batched_cpu_equals_eager_bit_for_bit(frames, eager_run,
     assert replays["A_ok"] == replays["B"] - replays["A_fail"]
     assert replays["K"] == int(kf[:, 1:].any(0).sum())
     assert replays["K_loop"] == 0
+    assert replays["boot"] == 1
+    assert replays["save"] == replays["boot_mix"] == 0
+
+
+def _mixed(states, fresh: int):
+    """``states`` with sequence ``fresh`` set back to the initial state: a
+    batch of booted and unbooted sequences."""
+    init = graphed._leaves(init_states(CFG, len(SEQS), "cpu"))
+    leaves = [x.clone() for x in graphed._leaves(states)]
+    for x, y in zip(leaves, init):
+        x[fresh] = y[fresh]
+    return graphed._tree(states, iter(leaves))
+
+
+def test_graphed_batched_cpu_mixed_bootstrap_bit_for_bit(frames, eager_run):
+    """From the eager run's final states with sequence 1 set back to its
+    initial state, the next frames bootstrap sequence 1 while 0 and 2
+    track on (``save`` and ``boot_mix`` on the first, then the booted
+    path): bit for bit the eager batched step."""
+    lefts, rights = frames
+    start = _mixed(eager_run[1], 1)
+    n = 3
+    eager = _run(step_mod.make_batched_step(CFG), _clone(start),
+                 lefts[:, :n], rights[:, :n])
+    bstep = graphed.make_graphed_batched_step(CFG, len(SEQS), "cpu")
+    got = _run(bstep, _clone(start), lefts[:, :n], rights[:, :n])
+    _assert_equal(got, eager)
+    ok, kf = _flags(eager[0])
+    assert kf[1, 0] and ok.all()
+    runs = bstep.replays
+    assert runs["save"] == runs["boot_mix"] == 1 and runs["boot"] == 0
+    assert runs["B"] == n
 
 
 def test_graphed_batched_refuses_a_wrong_batch():
@@ -154,9 +188,11 @@ def cuda_device():
 
 
 def _single_nodes(cfg, device):
-    """The single graphed step's kernel nodes by graph."""
+    """The single graphed step's kernel nodes by body of a phase (not the
+    bookkeeping of the flags body or the frame graph's own set nodes)."""
     step = graphed.make_graphed_step(cfg, device)
-    return {k: v["kernel"] for k, v in step.nodes.items()}
+    return {k: v["kernel"] for k, v in step.nodes.items()
+            if k not in ("flags", "F")}
 
 
 @pytest.mark.cuda
@@ -174,10 +210,9 @@ def test_graphed_batch_of_two_equals_single_graphed_runs(cuda_device):
     pos = torch.stack([o.T_wc[..., 3] for o in outs], 1).cpu()
     for b in range(len(seqs)):
         step = graphed.make_graphed_step(CFG, cuda_device)
-        flags, single = None, []
+        single = []
         for t in range(T):
-            _, out, flags = step(step.state, lefts[b, t], rights[b, t],
-                                 flags)
+            _, out = step(step.state, lefts[b, t], rights[b, t])
             single.append(_clone(out))
         s_ok, s_kf = _flags([FrameOut(*(x[None] for x in o))
                              for o in single])

@@ -106,8 +106,9 @@ from stereo_svo_tpu_torch.engine import graphed, state as state_mod
 cfg = entry._tiny_cfg()
 step = graphed.make_graphed_step(cfg, "cpu")
 img = torch.zeros(cfg.camera.height, cfg.camera.width)
-st, out, flags = step(state_mod.init_state(cfg, "cpu"), img, img)
-assert st is step.state and flags.booted and int(st.frame_idx) == 1
+st, out = step(state_mod.init_state(cfg, "cpu"), img, img)
+assert st is step.state and bool(st.kf_valid.any())
+assert int(st.frame_idx) == 1 and bool(out.kf_inserted)
 
 import tempfile
 import numpy as np

@@ -293,13 +293,13 @@ def test_entry_takes_one_step_on_the_cpu():
     noise frames bootstraps a keyframe; without a card the default
     raises."""
     fn, args = entry.entry(device="cpu")
-    state, left, right, flags = args
-    assert left.shape == (480, 752) and not flags.booted
+    state, left, right = args
+    assert left.shape == (480, 752) and not bool(state.kf_valid.any())
     rng = np.random.default_rng(0)
     np.testing.assert_array_equal(
         left.numpy(), rng.uniform(0, 255, (480, 752)).astype(np.float32))
-    new_state, out, new_flags = fn(*args)
-    assert bool(out.kf_inserted) and new_flags.booted
+    new_state, out = fn(*args)
+    assert bool(out.kf_inserted) and bool(new_state.kf_valid.any())
     assert int(new_state.frame_idx) == 1
     assert torch.isfinite(out.T_wc).all()
     if not torch.cuda.is_available():
