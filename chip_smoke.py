@@ -180,6 +180,22 @@ Phases, one result line each, in order:
      its idle time inside graph windows and between them (steady_split).
      Phase 12's profiled graphed frames also run in a process of their
      own (child).
+  16. the benchmark entry points, each in a process of its own
+     (BENCH_RUNS): bench_torch.py's default path (phase 3's 100 frames,
+     with batched-8 at 25 frames and BENCH_LATENCY=1), BENCH_GEOM=kitti,
+     BENCH_STRESS=1 and the default path twice more
+     (BENCH_SKIP_BATCHED=1), then bench_kernels_torch.py; gates each bench
+     line's accuracy gate "pass", finite positive frames/s, its timed runs
+     under sync debug mode "error" (a host read raises) and bit for bit
+     its warm-up run, one capture per path (batched and latency too),
+     every kernel launched in its timed runs (the counters zeroed just
+     before them and read just after, in the child), and
+     the default path's ATE equal to phase 3's to the printed digits;
+     every stage row (STAGE_ROWS) with finite eager and graphed ms, B1-B4
+     among the kernel nodes of the rows that launch them (STAGE_B_NODES;
+     the pyramid: one B1 and one B2 node) and the accounting finite;
+     prints each child's JSON as a line of its own, then a summary with
+     each default process's frames/s.
 Phase 2 also holds B2, B3 (K=3 and K=1) and B4 at the keyframe thumbnail
 (120x188, N=192, P=4, the centres a keyframe's features give it) that
 phase 7's edge measurements use.
@@ -343,6 +359,34 @@ PHASE14_REF = dict(tracking_ok=1.0, keyframes=112, wraps=14.0,
 KF_FRAME_MAX_HOST_LAUNCHES = 64
 # the argument that runs a child process (child_main)
 CHILD_FLAG = "--profile-graphed-frames"
+# phase 16: the benchmark entry points, each run in a process of its own:
+# (tag, script, its env knobs); the default path three times (the
+# bimodality of steady frames across processes, PERF.md §7)
+BENCH_RUNS = (("default", "bench_torch.py", {"BENCH_LATENCY": "1"}),
+              ("kitti", "bench_torch.py", {"BENCH_GEOM": "kitti"}),
+              ("stress", "bench_torch.py", {"BENCH_STRESS": "1"}),
+              ("default_2", "bench_torch.py", {"BENCH_SKIP_BATCHED": "1"}),
+              ("default_3", "bench_torch.py", {"BENCH_SKIP_BATCHED": "1"}),
+              ("stages", "bench_kernels_torch.py", {}))
+BENCH_TIMEOUT_S = 600
+BENCH_VALID_RUNS = 5                       # bench_torch.py's default
+# bench_kernels_torch.py's rows of SvoConfig() (no epipolar search) and
+# the B1-B4 kernel nodes each must hold at least (the pyramid: exactly)
+STAGE_ROWS = ("pyramid_ms", "fast_score_l0_ms", "detector_ms", "align_ms",
+              "align_template_ms", "klt_ms", "klt_template_ms",
+              "pose_refine_ms", "stereo_match_ms", "depth_filter_ms",
+              "kf_insert_ms", "window_ba_ms", "full_step_ms", "reloc_ms",
+              "stereo_refresh_ms", "rebuild_template_ms")
+STAGE_B_NODES = {"align_ms": ("sample_patches", "gn_accumulate"),
+                 "align_template_ms": ("sample_patches",),
+                 "klt_ms": ("sample_patches",),
+                 "klt_template_ms": ("sample_patches",),
+                 "rebuild_template_ms": ("sample_patches",),
+                 "full_step_ms": ("halfsample", "gradients",
+                                  "sample_patches", "gn_accumulate")}
+STAGE_ACCOUNTING = ("per_op_sum_ms", "step_nonkf_ms",
+                    "intra_frame_residual_ms", "kf_phase_ms", "kf_rate",
+                    "model_frame_ms", "measured_frame_ms", "unaccounted_ms")
 # phase 15: the steady frames in torch.profiler's window, from frame
 # SCAN_PROFILE_AT of phase 3's sequence (phase 8's: its last ones)
 SCAN_PROFILE_AT, SCAN_PROFILE_FRAMES = 40, 20
@@ -513,14 +557,6 @@ def footprint_pixels(h, w, uv, P) -> int:
     idx = torch.cat([iv0 * w + iu0, iv0 * w + iu1, iv1 * w + iu0,
                      iv1 * w + iu1])
     return int(torch.unique(idx).numel())
-
-
-def nvidia_smi_line() -> str:
-    proc = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    require(proc.returncode == 0, f"nvidia-smi failed: {proc.stderr}")
-    return proc.stdout.strip().splitlines()[0]
 
 
 def _max_err(a, b):
@@ -1016,25 +1052,6 @@ def check_kernels(device, frame, kitti_frame, thumb):
     batch_gn_case(thumbs, t_uv8, "phase7", f"{LOOP_EDGES} edges, loop "
                   f"refresh pass", feature_mask=t_mask8)
     return rows
-
-
-def render_kitti_road(cam, n, device):
-    """The KITTI-geometry road sequence as bench.py renders it: the frame
-    loop of synthetic.make_sequence (road scene, kitti trajectory, seed 0,
-    dt 0.08) with bench.py's 2×2 anti-aliasing for road scenes, which
-    make_sequence does not offer."""
-    import torch
-    from stereo_svo_tpu_torch.io import synthetic
-    scene = synthetic.get_scene("road", SEED, device)
-    lefts, rights, poses = [], [], []
-    for i in range(n):
-        T = synthetic.trajectory_pose(
-            torch.tensor(i * DT, dtype=torch.float32, device=device), "kitti")
-        left, right = synthetic.render_stereo(cam, T, scene, aa=2)
-        lefts.append(left)
-        rights.append(right)
-        poses.append(T)
-    return torch.stack(lefts), torch.stack(rights), torch.stack(poses)
 
 
 def count_syncs(fn):
@@ -2618,6 +2635,110 @@ def batched_scan_run(cfg, lefts, rights, counters, device):
             "frame_ms_all": frame_ms}
 
 
+def bench_child(script: str, knobs: dict):
+    """``python3 <script>`` from the repository root in a process of its
+    own, with the env's BENCH_* knobs replaced by ``knobs``: (its JSON
+    output, the seconds it took). Fails unless it exits 0."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(knobs)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, script)],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    require(proc.returncode == 0,
+            f"phase 16: {script} {knobs} exited {proc.returncode}: "
+            f"{proc.stdout[-1000:]} {proc.stderr[-2000:]}")
+    text = proc.stdout.strip()
+    return json.loads(text if script != "bench_torch.py"
+                      else text.splitlines()[-1]), seconds
+
+
+def check_bench_line(tag: str, p: dict, phase3_ate: float) -> None:
+    """Phase 16's gates on one bench_torch.py line."""
+    import math
+    what = f"phase 16 {tag}"
+    require(p["accuracy_gate"] == "pass", f"{what}: {p['accuracy_gate']}")
+    require(math.isfinite(p["value"]) and p["value"] > 0,
+            f"{what}: frames/s {p['value']}")
+    # a host read inside a timed run raises under sync debug mode
+    # "error", a run that is not its warm-up run bit for bit raises; one
+    # capture
+    require(p["sync_debug_mode"] == "error"
+            and p["n_timing_runs"] == BENCH_VALID_RUNS and p["captures"] == 1,
+            f"{what}: sync debug mode {p['sync_debug_mode']}, "
+            f"{p['n_timing_runs']} timed runs, {p['captures']} captures")
+    # the counters zeroed just before the timed runs, read just after
+    runs = {"": p["launches"]}
+    if tag == "default":
+        runs.update(batched8_=p["batched8_launches"],
+                    latency_=p["latency_launches"])
+    for key, counts in runs.items():
+        missing = [k for k, v in counts.items() if v <= 0]
+        require(not missing, f"{what}: kernels never launched in the "
+                             f"{key}timed runs: {missing}")
+    if tag.startswith("default"):
+        # phase 3's frames on a step of the same configuration
+        require(p["ate_rmse_m"] == round(phase3_ate, 4),
+                f"{what}: ATE {p['ate_rmse_m']}, phase 3's {phase3_ate}")
+    if tag == "default":
+        require(math.isfinite(p["batched8_frames_per_s"])
+                and p["batched8_frames_per_s"] > 0
+                and p["batched8_captures"] == 1
+                and p["latency_captures"] == 1,
+                f"{what}: batched8 frames/s {p['batched8_frames_per_s']}, "
+                f"captures {p['batched8_captures']} (batched) "
+                f"{p['latency_captures']} (latency)")
+
+
+def check_stage_table(t: dict) -> None:
+    """Phase 16's gates on bench_kernels_torch.py's table."""
+    import math
+    for name in STAGE_ROWS:
+        row = t.get(name)
+        require(row is not None and all(
+            math.isfinite(row[k]) and row[k] > 0
+            for k in ("eager_ms", "graphed_ms")),
+            f"phase 16 stages: row {name} {row}")
+        for key in STAGE_B_NODES.get(name, ()):
+            require(row["b_kernels"][key] > 0,
+                    f"phase 16 stages: {name} holds no {key} node "
+                    f"({row['b_kernels']})")
+    pyr = t["pyramid_ms"]["b_kernels"]
+    require(pyr["halfsample"] == 1 and pyr["gradients"] == 1
+            and pyr["sample_patches"] == pyr["gn_accumulate"] == 0,
+            f"phase 16 stages: the pyramid's kernel nodes {pyr}, not one "
+            f"B1 and one B2")
+    acc = t["accounting"]
+    require(acc["rows"] == "graphed_ms" and all(
+        math.isfinite(acc[k]) for k in STAGE_ACCOUNTING),
+        f"phase 16 stages: accounting {acc}")
+
+
+def bench_entry_points(phase3_ate: float) -> dict:
+    """Phase 16: bench_torch.py's paths and bench_kernels_torch.py, each in
+    a process of its own (BENCH_RUNS), each child's JSON an earlier line;
+    returns a summary."""
+    out = {"seconds": {}}
+    for tag, script, knobs in BENCH_RUNS:
+        p, out["seconds"][tag] = bench_child(script, knobs)
+        emit(f"phase16_{tag}", p)
+        if script == "bench_torch.py":
+            check_bench_line(tag, p, phase3_ate)
+            out[tag] = {k: p.get(k) for k in (
+                "value", "timing_spread_pct", "fps_runs",
+                "bootstrap_frame_ms", "capture_s", "pool_mb", "ate_rmse_m",
+                "batched8_frames_per_s", "batched8_pool_mb",
+                "latency_p50_ms", "latency_device_p50_ms", "device")}
+        else:
+            check_stage_table(p)
+            out[tag] = {"accounting": p["accounting"], "graphed_ms": {
+                name: p[name]["graphed_ms"] for name in STAGE_ROWS}}
+    out["default_fps_by_process"] = [out[t]["value"] for t in
+                                     ("default", "default_2", "default_3")]
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2631,6 +2752,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     try:
         import stereo_svo_tpu_torch  # noqa: F401  (sets the TF32 flags)
+        import bench_torch
         from stereo_svo_tpu_torch.config import (SvoConfig, kitti_config,
                                                  stress_config)
         from stereo_svo_tpu_torch.engine import step as step_mod
@@ -2657,7 +2779,7 @@ def main() -> int:
         clock[:] = [now, name]
 
     # ---- phase 0: device ----
-    smi = nvidia_smi_line()
+    smi = bench_torch.device_line(device)
     name = torch.cuda.get_device_name(0)
     phase0 = {"device_name": name, "nvidia_smi": smi,
               "device_count": torch.cuda.device_count(),
@@ -2687,8 +2809,11 @@ def main() -> int:
     render_s = time.perf_counter() - t0
     require(tuple(lefts.shape) == (N_FRAMES, 480, 752), f"{lefts.shape}")
     t0 = time.perf_counter()
-    k_lefts, k_rights, k_gt = render_kitti_road(kcfg.camera, N_FRAMES,
-                                                device)
+    # bench.py's KITTI sequence: the road scene on the kitti trajectory,
+    # 2x2 anti-aliased
+    k_lefts, k_rights, k_gt = bench_torch.render_sequence(
+        kcfg.camera, N_FRAMES, "road", "kitti", seed=SEED, dt=DT,
+        device=device)
     torch.cuda.synchronize()
     k_render_s = time.perf_counter() - t0
     require(tuple(k_lefts.shape) == (N_FRAMES, 376, 1241),
@@ -2964,6 +3089,12 @@ def main() -> int:
     emit("phase15", phase15)
     detail["phase15"] = phase15
     del frames8
+
+    # ---- phase 16: the benchmark entry points ----
+    mark("phase16")
+    phase16 = bench_entry_points(phase3["ate_m"])
+    emit("phase16", phase16)
+    detail["phase16"] = phase16
     mark("end")
     seconds["total"] = clock[0] - t_start
     emit("seconds", seconds)

@@ -240,6 +240,7 @@ def main() -> int:
         print("FAIL: profile_step.py needs an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    import bench_torch
     import chip_smoke
     if args.tree:
         sys.path.insert(0, os.path.abspath(args.tree))
@@ -249,7 +250,7 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     trace = os.path.join(ROOT, "build", "profile_step_idle_trace.json")
     if args.only == "idle":
-        print(chip_smoke.nvidia_smi_line(), flush=True)
+        print(bench_torch.device_line(dev), flush=True)
         results = {"idle": dict(idle_profile(dev, trace),
                                 package=stereo_svo_tpu_torch.__file__)}
         print("idle", json.dumps(results["idle"]), flush=True)
@@ -265,12 +266,13 @@ def main() -> int:
     from stereo_svo_tpu_torch.io import synthetic
 
     n = N_FRAMES
-    print(chip_smoke.nvidia_smi_line(), flush=True)
+    print(bench_torch.device_line(dev), flush=True)
     lefts, rights, _ = synthetic.make_sequence(
         SvoConfig().camera, n, chip_smoke.DT, kind="arc",
         seed=chip_smoke.SEED, device=dev)
-    k_lefts, k_rights, _ = chip_smoke.render_kitti_road(
-        kitti_config().camera, n, dev)
+    k_lefts, k_rights, _ = bench_torch.render_sequence(
+        kitti_config().camera, n, "road", "kitti", seed=chip_smoke.SEED,
+        dt=chip_smoke.DT, device=dev)
     configs = (("default", SvoConfig(), lefts, rights),
                ("default_no_ba", SvoConfig(use_ba=False), lefts, rights),
                ("kitti", kitti_config(), k_lefts, k_rights),

@@ -413,6 +413,7 @@ def _capture_graphs(step) -> Tuple[float, int]:
         step.reset()
         step._runs.runs.zero_()
         torch.cuda.synchronize(dev)
+    CAPTURES["steps"] += 1
     return time.perf_counter() - t0, pool_bytes
 
 
@@ -451,6 +452,9 @@ class _Runs:
 # the run counters of the steps made, until settle() has added the last
 # runs of a step that is gone
 _RUNS: List[_Runs] = []
+# steps (single or batched) whose bodies were captured in this process:
+# how bench_torch.py shows that a path captures its step once
+CAPTURES = {"steps": 0}
 
 
 def settle() -> None:
@@ -775,4 +779,4 @@ def make_graphed_batched_step(cfg: SvoConfig, B: int, device="cuda"
 __all__ = ["make_graphed_step", "make_graphed_batched_step", "GraphedStep",
            "GraphedBatchedStep", "capture", "scan", "kernel_names",
            "counter_of", "settle", "GRAPHS", "BATCH_GRAPHS", "KERNELS",
-           "NOT_IN_A_BODY"]
+           "NOT_IN_A_BODY", "CAPTURES"]

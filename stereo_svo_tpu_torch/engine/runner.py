@@ -12,7 +12,10 @@ included, is one launch of the step's frame graph, whose branches run on
 the device. Poses and metrics stay on the device until read:
 ``run_sequence_scan`` and ``run_sequence_batched`` read nothing between
 frames (the reference's "zero host involvement between frames"), and
-``StereoSvo`` reads only when asked.
+``StereoSvo`` reads only when asked. ``run_frames`` and
+``run_frames_batched`` are those two runners' frame loops on a step made
+once: reset and run again, a step replays what a fresh one gives (the
+benchmark's repeated runs, ``bench_torch.py``).
 """
 
 from __future__ import annotations
@@ -112,17 +115,21 @@ def _rows(out: FrameOut, lead: Tuple[int, ...]) -> FrameOut:
                                   device=x.device) for x in out))
 
 
-def run_sequence_scan(cfg: SvoConfig, lefts, rights, device="cuda"
-                      ) -> Tuple[SlamState, FrameOut]:
-    """Whole-sequence processing: lefts/rights (T,H,W) in, (final state,
-    FrameOut stacked over T) out, everything on the device, through the
-    graph-captured step. Each frame is a device copy of its images into
-    the step's, one launch of its frame graph and a device copy of its
-    FrameOut into row t of the stacked one: no host read between frames,
-    as the reference's ``lax.scan``."""
-    device = resolve(device)
-    lefts, rights = _images(lefts, device), _images(rights, device)
-    step = make_graphed_step(cfg, device)
+def run_frames(step, lefts, rights, after_frame=None
+               ) -> Tuple[SlamState, FrameOut]:
+    """Run (T,H,W) frames through a made graphed step
+    (:func:`graphed.make_graphed_step`) from its live state: (final state,
+    FrameOut stacked over T), everything on the step's device. Each frame
+    is a device copy of its images into the step's, one launch of its
+    frame graph and a device copy of its FrameOut into row t of the
+    stacked one: no host read between frames, as the reference's
+    ``lax.scan``. ``after_frame(t)``, when given, runs after frame t is
+    enqueued (a CUDA event there times the frames).
+
+    A step reset (``step.reset()``) and run again gives what a fresh
+    step gives, bit for bit: the counterpart of a second call of the
+    reference's jitted runner, which does not compile again."""
+    lefts, rights = _images(lefts, step.device), _images(rights, step.device)
     T = lefts.shape[0]
     outs = None
     for t in range(T):
@@ -130,7 +137,40 @@ def run_sequence_scan(cfg: SvoConfig, lefts, rights, device="cuda"
         if outs is None:
             outs = _rows(out, (T,))
         torch._foreach_copy_([x[t] for x in outs], list(out))
+        if after_frame is not None:
+            after_frame(t)
     return step.state, outs
+
+
+def run_frames_batched(bstep, lefts, rights, after_frame=None
+                       ) -> Tuple[SlamState, FrameOut]:
+    """:func:`run_frames` for a made graphed batched step
+    (:func:`graphed.make_graphed_batched_step`): lefts/rights (B,T,H,W)
+    in; the final states stacked (every field with a leading B axis) and
+    a FrameOut with leading (B,T) axes out; one launch of its frame graph
+    a batched frame, ``after_frame(t)`` after batched frame t."""
+    lefts = _images(lefts, bstep.device)
+    rights = _images(rights, bstep.device)
+    T = lefts.shape[1]
+    outs = None
+    for t in range(T):
+        _, out = bstep(bstep.state, lefts[:, t], rights[:, t])
+        if outs is None:
+            outs = _rows(out, (T,))       # (T,B,…), as (B,T,…) below
+        torch._foreach_copy_([x[t] for x in outs], list(out))
+        if after_frame is not None:
+            after_frame(t)
+    return bstep.state, FrameOut(*(x.transpose(0, 1) for x in outs))
+
+
+def run_sequence_scan(cfg: SvoConfig, lefts, rights, device="cuda"
+                      ) -> Tuple[SlamState, FrameOut]:
+    """Whole-sequence processing: lefts/rights (T,H,W) in, (final state,
+    FrameOut stacked over T) out, everything on the device, through a
+    graph-captured step made here (:func:`run_frames`): no host read
+    between frames, as the reference's ``lax.scan``."""
+    return run_frames(make_graphed_step(cfg, resolve(device)), lefts,
+                      rights)
 
 
 def run_sequence_batched(cfg: SvoConfig, lefts, rights, device="cuda"
@@ -140,15 +180,8 @@ def run_sequence_batched(cfg: SvoConfig, lefts, rights, device="cuda"
     FrameOut with leading (B,T) axes out, through the graph-captured
     batched step (:func:`graphed.make_graphed_batched_step`; captured here,
     once), whose every phase runs once for the whole batch: one launch of
-    its frame graph a batched frame, and no host read between frames."""
-    device = resolve(device)
-    lefts, rights = _images(lefts, device), _images(rights, device)
-    B, T = lefts.shape[:2]
-    bstep = make_graphed_batched_step(cfg, B, device)
-    outs = None
-    for t in range(T):
-        _, out = bstep(bstep.state, lefts[:, t], rights[:, t])
-        if outs is None:
-            outs = _rows(out, (T,))       # (T,B,…), as (B,T,…) below
-        torch._foreach_copy_([x[t] for x in outs], list(out))
-    return bstep.state, FrameOut(*(x.transpose(0, 1) for x in outs))
+    its frame graph a batched frame, and no host read between frames
+    (:func:`run_frames_batched`)."""
+    B = len(lefts)
+    return run_frames_batched(
+        make_graphed_batched_step(cfg, B, resolve(device)), lefts, rights)

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``stereo_svo_tpu_torch`` (nor
-``chip_smoke.py``) imports jax or the ``stereo_svo_tpu`` package, loads a
+``chip_smoke.py``, ``bench_torch.py`` or ``bench_kernels_torch.py``)
+imports jax or the ``stereo_svo_tpu`` package, loads a
 file by path, or names a path into ``stereo_svo_tpu/``.
 
 An AST scan, plus an import of every port module in a fresh interpreter
@@ -33,7 +34,9 @@ REF_PATH = re.compile(r"^(\./)?stereo_svo_tpu(/[\w./-]*)?$")
 
 
 def _sources():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [
+        ROOT / f for f in ("chip_smoke.py", "bench_torch.py",
+                           "bench_kernels_torch.py")]
     return [f for f in files if f.exists()]
 
 
@@ -88,6 +91,8 @@ class Block(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, Block())
 import stereo_svo_tpu_torch
 import chip_smoke
+import bench_torch
+import bench_kernels_torch
 n = 0
 for info in pkgutil.walk_packages(stereo_svo_tpu_torch.__path__,
                                   "stereo_svo_tpu_torch."):
