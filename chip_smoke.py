@@ -116,9 +116,8 @@ Phases, one result line each, in order:
      keyframe moved by less than MAP_MAX_MOVE_M, and the sharded BA at
      world size 1 within MAP_BA_TOL of the single-process ba_iteration
      loop on the same inputs; reports launches, device ms and wall ms of
-     the call and of its pose-graph and BA parts. The machine has one GPU:
-     no multi-rank NCCL run is made here (the multi-rank check is the gloo
-     CPU dry run of tests/test_torch_parallel.py).
+     the call and of its pose-graph and BA parts (phase 17 runs the same
+     map over spawned ranks, one a GPU).
   12. graphed against eager: phase 3's frames through the eager step
      (engine/step.make_step, one host sync on every frame after the
      bootstrap) with phase 3's accounting; gates the two trajectories and
@@ -138,7 +137,8 @@ Phases, one result line each, in order:
      (SvoConfig(), kitti_config(), stress_config(): 2 kernel nodes, one B1
      and one B2, or the run fails), capture seconds and
      graph pool MB, and the device busy share of a replayed tracked frame
-     (which must lie in (0, 1]) and keyframe frame.
+     (its records' device time over its own CUDA-event span in the trace,
+     which must lie in (0, 1]) and keyframe frame.
   13. the hard scenes of tests/test_synthetic_hard.py (:78, 136, 150, 164,
      177): the cluttered scene of spheres, the in-plane spin, the moving
      object, motion blur and the photometric perturbation, 30 frames at dt
@@ -196,6 +196,27 @@ Phases, one result line each, in order:
      the pyramid: one B1 and one B2 node) and the accounting finite;
      prints each child's JSON as a line of its own, then a summary with
      each default process's frames/s.
+  17. the multi-rank paths, one rank a GPU over nccl, n the card count
+     (1 on a machine with one GPU): (a) entry.dryrun_multichip(n), each
+     rank reporting backend nccl, its tensors on cuda:r and B1-B4 launched
+     inside it (the tiny configuration's bootstrap step, one tracked step,
+     one sharded BA), then rank 0's two steps again in this process, every
+     B1-B4 call recorded (kernel_calls) and held against its plain version
+     at the dry run's own shapes (check_kernel_calls: B1-B3 exact, B4
+     within 1e-4 of the largest entry) and the rank's tracked pose equal
+     to the replay's; (b) phase 8's sequences split r::n over n ranks that
+     parallel/mesh.spawn_local starts (sharded_rank), each rank's rendered
+     on its card and run through run_sequence_batched: at n = 1 poses and
+     flags bit for bit phase 8's (the same program on the same card),
+     W7's tolerance (BATCH_POS_TOL_M) otherwise; (c) the global map of
+     sequences MAP_SEQS, each state broadcast from its rank,
+     detect_loop_edges and optimize_global_map over the kf group of the
+     same ranks: every rank the same map, at n = 1 bit for bit phase 11's;
+     (d) spawn_local with n + 1 ranks raises RuntimeError naming the card
+     count and starts no process (touch_rank's file stays absent); reports
+     spawn-to-ready s a rank, capture s, the rank's batched frames/s and
+     optimize_global_map wall ms beside the nvidia-smi line, and rank 0's
+     launches (the kernels line's launches_by_path "phase17_rank0").
 Phase 2 also holds B2, B3 (K=3 and K=1) and B4 at the keyframe thumbnail
 (120x188, N=192, P=4, the centres a keyframe's features give it) that
 phase 7's edge measurements use.
@@ -206,9 +227,10 @@ and B2, B3 and B4 over LOOP_EDGES=8 edges at the thumbnail (one pass of
 measure_edges); each problem bit for bit its one-problem launch, the batch
 against the plain problem-axis version (B4 within 1e-4 of the largest
 entry), bound and library call for the whole batch.
-Each of phases 3-11 and 13-15 (each run of phase 13) zeroes the launch
-counters just before its run, reads them just after, and fails unless
-every kernel launched; a graphed step's frames launch their kernels
+Each of phases 3-11 and 13-15 (each run of phase 13), and each rank of
+phase 17 (each part), zeroes the launch counters just before its run,
+reads them just after, and fails unless every kernel launched (the
+global map: B2-B4); a graphed step's frames launch their kernels
 inside the frame graph, whose bodies count their runs on the device, and
 the counters take each body's kernel nodes times its runs when they are
 zeroed or read (graphed.settle, outside the frames). Each counts host
@@ -387,6 +409,11 @@ STAGE_B_NODES = {"align_ms": ("sample_patches", "gn_accumulate"),
 STAGE_ACCOUNTING = ("per_op_sum_ms", "step_nonkf_ms",
                     "intra_frame_residual_ms", "kf_phase_ms", "kf_rate",
                     "model_frame_ms", "measured_frame_ms", "unaccounted_ms")
+# phase 17: the multi-rank paths, one rank a GPU over nccl, each spawned
+# call's time limit; the sequences (of phase 8's) whose global map phase 11
+# and phase 17 build
+MULTI_TIMEOUT_S = 300.0
+MAP_SEQS = (0, 1)
 # phase 15: the steady frames in torch.profiler's window, from frame
 # SCAN_PROFILE_AT of phase 3's sequence (phase 8's: its last ones)
 SCAN_PROFILE_AT, SCAN_PROFILE_FRAMES = 40, 20
@@ -1573,7 +1600,8 @@ def batched_run(cfg, counters, device, traj3):
                 f"node for the batch")
     require(out["single_seq0_equals_phase3"],
             "the single run of sequence 0 differs from phase 3's frames")
-    return out, states, (lefts, rights)
+    return out, states, (lefts, rights), {"T_wc": traj, "tracking_ok": ok,
+                                          "kf_inserted": kf}
 
 
 def graph_p_nodes(svo) -> dict:
@@ -1809,7 +1837,7 @@ def global_map_run(cfg, states, counters):
 
     zero_counters(counters)
     gmap = mapping.build_global_map(cfg, [index_state(states, b)
-                                          for b in (0, 1)])
+                                          for b in MAP_SEQS])
     K, N = cfg.max_keyframes, cfg.max_features
     require(tuple(gmap.kf_T_wk.shape) == (2 * K, 3, 4)
             and tuple(gmap.obs_uv.shape) == (2 * K, 2 * N, 2)
@@ -1904,7 +1932,8 @@ def global_map_run(cfg, states, counters):
     require(ba_diff <= MAP_BA_TOL,
             f"sharded BA at world size 1 differs from the single-process "
             f"iterations by {ba_diff}")
-    return out
+    return out, {"kf_T_wk": refined.kf_T_wk.cpu().numpy(),
+                 "X": refined.X.cpu().numpy()}
 
 
 def _matched(tries) -> bool:
@@ -1947,17 +1976,21 @@ def profile_frames(key, make, cfg, lefts, rights, counters, kinds) -> dict:
 
         graph_step = svo._step if key == "graphed" else None
         runs0 = {}
+        span = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
 
         def frame(t=t, svo=svo):
             zero_counters(counters)
             if graph_step:      # a read (no kernel) before the frame
                 runs0.update(graph_step.replays)
+            span[0].record()
             svo.new_image(lefts[t], rights[t])
+            span[1].record()
         # the frame before, or another step's bootstrap before frame 0
         w, before = (t - 1, svo) if t else (0, spare)
         prof = prof_launches(frame, warmup=lambda w=w, svo=before:
                              svo.new_image(lefts[w], rights[w]))
         done = t + 1
+        prof["frame_event_ms"] = span[0].elapsed_time(span[1])
         if graph_step:
             runs1 = graph_step.replays
             prof["body_runs"] = {g: runs1[g] - runs0[g]
@@ -2052,12 +2085,15 @@ def graphed_vs_eager(cfg, lefts, rights, gt, counters, svo3, phase3,
            "graph_pool_mb": step.pool_bytes / 2**20,
            "loop_capture_seconds": loop_step.capture_seconds,
            "loop_graph_pool_mb": loop_step.pool_bytes / 2**20}
-    for kind, ms in (("bootstrap", "first_frame_ms"),
-                     ("tracked", "track_frame_ms_median"),
-                     ("keyframe", "kf_frame_ms_median")):
-        for key, run in (("graphed", phase3), ("eager", eager)):
+    # the profiled frame's device time over its own CUDA-event span in the
+    # same trace: a fast-band frame (PERF.md §7) is busy nearly all its
+    # span, so another run's unprofiled median can fall below its traced
+    # device time
+    for kind in ("bootstrap", "tracked", "keyframe"):
+        for key in ("graphed", "eager"):
+            prof = profiled[kind][key]
             out[f"device_busy_share_{key}_{kind}_frame"] = \
-                profiled[kind][key]["device_ms"] / run[ms]
+                prof["device_ms"] / prof["frame_event_ms"]
     require(out["bit_for_bit"], f"graphed and eager runs differ first at "
                                 f"{first_diff}")
     # a tracked frame's device work is the same on every frame; keyframe
@@ -2739,6 +2775,340 @@ def bench_entry_points(phase3_ate: float) -> dict:
     return out
 
 
+def kernel_calls(fn):
+    """fn() with every call of the kernels' custom ops (``svo::pyramid``,
+    ``svo::gradients``, ``svo::sample_patches``, ``svo::gn_accumulate``)
+    recorded below vmap, where each op gets its problem axis: (fn's
+    result, [(op, arguments, result)], each tensor a copy)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    calls = []
+
+    def copy(x):
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.namespace == "svo":
+                calls.append((func.name(), [copy(a) for a in args],
+                              copy(out)))
+            return out
+
+    with Record():
+        result = fn()
+    return result, calls
+
+
+def check_kernel_calls(calls) -> dict:
+    """Each recorded kernel call's result against its plain version on the
+    same arguments, at phase 2's tolerances: B1, B2 and B3 bit for bit;
+    B4's H, g and cost within 1e-4 of the largest entry, its counts
+    equal. Returns, per kernel, its calls, their argument shapes and the
+    largest errors; requires every kernel among them."""
+    import torch
+    from stereo_svo_tpu_torch.ops.kernels import align_kernel as ak
+    from stereo_svo_tpu_torch.ops.kernels import pyramid_kernel as pk
+
+    rows = {}
+
+    def note(name, shape, out, ref, tol_rel=0.0):
+        err_abs, err_rel = _max_err(out, ref)
+        row = rows.setdefault(name, {"calls": 0, "shapes": [],
+                                     "max_abs_err": 0.0, "max_rel_err": 0.0,
+                                     "tol_abs": 0.0, "tol_rel": tol_rel})
+        row["calls"] += 1
+        if shape not in row["shapes"]:
+            row["shapes"].append(shape)
+        row["max_abs_err"] = max(row["max_abs_err"], err_abs)
+        row["max_rel_err"] = max(row["max_rel_err"], err_rel)
+        require(err_abs <= 0.0 or err_rel <= tol_rel,
+                f"{name} {shape}: kernel disagrees with its plain version "
+                f"(abs {err_abs}, rel {err_rel})")
+
+    for op, args, out in calls:
+        shape = [list(a.shape) if isinstance(a, torch.Tensor) else a
+                 for a in args]
+        if op == "svo::pyramid":
+            img, levels = args
+            h, w = img.shape[-2:]
+            got = pk.level_views(out, h, w, levels)
+            ref = pk.level_views(pk._pyramid_flat_plain(img, levels), h, w,
+                                 levels)
+            note("halfsample", shape, [b[..., 0, :, :] for b in got],
+                 [b[..., 0, :, :] for b in ref])
+            note("gradients", shape, [b[..., 1:, :, :] for b in got],
+                 [b[..., 1:, :, :] for b in ref])
+        elif op == "svo::gradients":
+            note("gradients", shape, out,
+                 torch.stack(pk.gradients_plain(args[0]), -3))
+        elif op == "svo::sample_patches":
+            note("sample_patches", shape, out,
+                 ak.sample_patches_batched_plain(*args))
+        elif op == "svo::gn_accumulate":
+            ref = ak.gn_accumulate_batched_plain(*args)
+            require(torch.equal(out[..., 43:], ref[..., 43:]),
+                    f"gn_accumulate {shape}: counts differ from the plain "
+                    f"version")
+            note("gn_accumulate", shape, out[..., :43], ref[..., :43],
+                 tol_rel=1e-4)
+    missing = [k for k in KERNEL_FUNCTIONS if k not in rows]
+    require(not missing, f"no recorded call of {missing}")
+    return rows
+
+
+def touch_rank(rank: int, n: int, path: str) -> None:
+    """A rank that leaves a file behind: phase 17 (d) holds that a call
+    which must raise started none."""
+    with open(path, "w") as f:
+        f.write(f"rank {rank} of {n}\n")
+
+
+def sharded_rank(rank: int, n: int, cfg, n_seqs: int, frames: int,
+                 dt: float, t_spawn: float) -> dict:
+    """Phase 17 (b) and (c) in rank ``rank`` of ``n`` (a module-level
+    function, so that parallel/mesh.spawn_local's children can import it),
+    on the rank's device (mesh.rank_device: its card under nccl).
+
+    (b) sequences ``rank::n`` of the n_seqs ``planes`` arcs (seeds 0 to
+    n_seqs-1, ``frames`` frames at ``dt``), rendered on that device, through
+    runner.run_sequence_batched's graphed batched step. (c) the final
+    states of MAP_SEQS, each broadcast from the rank that ran it, into one
+    global map, detect_loop_edges over it, and optimize_global_map over the
+    kf group of all n ranks, twice (the first call pays for the group's
+    communicator). Returns on the host: poses and flags, the map and its
+    loop graph, the refined map, timings, and the launch counts of each
+    part (0 on the CPU, where the kernels' plain versions run)."""
+    import torch
+    import torch.distributed as dist
+    from stereo_svo_tpu_torch.engine import graphed, runner
+    from stereo_svo_tpu_torch.io import synthetic
+    from stereo_svo_tpu_torch.ops.kernels import align_kernel as ak
+    from stereo_svo_tpu_torch.ops.kernels import pyramid_kernel as pk
+    from stereo_svo_tpu_torch.parallel import mapping
+    from stereo_svo_tpu_torch.parallel import mesh as mesh_mod
+
+    ready_s = time.time() - t_spawn
+    device = mesh_mod.rank_device()
+    counters = (pk.LAUNCHES, ak.LAUNCHES)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def host(tree) -> dict:
+        return {k: v.cpu().numpy() for k, v in tree._asdict().items()}
+
+    # ---- (b): this rank's sequences through the graphed batched step ----
+    mine = list(range(rank, n_seqs, n))
+    seqs = [synthetic.make_sequence(cfg.camera, frames, dt, kind="arc",
+                                    seed=b, device=device) for b in mine]
+    lefts = torch.stack([q[0] for q in seqs])
+    rights = torch.stack([q[1] for q in seqs])
+    del seqs
+    zero_counters(counters)
+    # run_sequence_batched's two parts, so that the frames are timed apart
+    # from the capture
+    step = runner.make_graphed_batched_step(cfg, len(mine), device)
+    t0 = time.perf_counter()
+    states, outs = runner.run_frames_batched(step, lefts, rights)
+    sync()
+    frames_s = time.perf_counter() - t0
+    launches_batched = counted(counters)
+
+    # ---- (c): the global map of MAP_SEQS over the kf group ----
+    zero_counters(counters)
+    leaves = graphed._leaves(states)
+    picked = []
+    for s in MAP_SEQS:
+        owner, b = s % n, s // n
+        got = [x[b].clone() if owner == rank else torch.empty_like(x[0])
+               for x in leaves]
+        for t in got:
+            dist.broadcast(t, src=owner)
+        picked.append(graphed._tree(states, iter(got)))
+    gmap = mapping.build_global_map(cfg, picked)
+    graph, _ = mapping.detect_loop_edges(cfg, gmap)
+    mesh = mesh_mod.make(n, axis_name="kf")
+
+    def optimize():
+        sync()
+        t0 = time.perf_counter()
+        out = mapping.optimize_global_map(mesh, cfg.camera, cfg, gmap,
+                                          loop_edges=graph)
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    (refined, pg_cost), first_ms = optimize()
+    (again, _), opt_ms = optimize()
+    return {
+        "rank": rank, "backend": dist.get_backend(), "device": str(device),
+        "sequences": mine, "spawn_to_ready_s": ready_s,
+        "capture_s": step.capture_seconds, "frames_s": frames_s,
+        "batched_frames_per_s": frames / frames_s,
+        "frames_per_s": len(mine) * frames / frames_s,
+        "T_wc": outs.T_wc.cpu().numpy(),
+        "tracking_ok": outs.tracking_ok.cpu().numpy(),
+        "kf_inserted": outs.kf_inserted.cpu().numpy(),
+        "launches_batched": launches_batched,
+        "map": host(gmap), "loop_edges": host(graph),
+        "kf_T_wk": refined.kf_T_wk.cpu().numpy(),
+        "X": refined.X.cpu().numpy(), "pg_cost": float(pg_cost),
+        "repeats": bool(torch.equal(again.kf_T_wk, refined.kf_T_wk)
+                        and torch.equal(again.X, refined.X)),
+        "optimize_first_call_wall_ms": first_ms,
+        "optimize_wall_ms": opt_ms,
+        "launches_map": counted(counters)}
+
+
+def by_sequence(ranks, key: str, n_seqs: int):
+    """The ranks' per-sequence rows of ``key`` in sequence order (rank r ran
+    sequences r::n)."""
+    import numpy as np
+    out = [None] * n_seqs
+    for r in ranks:
+        for i, s in enumerate(r["sequences"]):
+            out[s] = r[key][i]
+    return np.stack(out)
+
+
+def multi_rank_run(cfg, ref8: dict, ref11: dict, smi: str) -> dict:
+    """Phase 17: the multi-rank paths with one rank a GPU over nccl, n the
+    card count. (a) entry.dryrun_multichip(n), and its steps' kernel calls
+    against their plain versions; (b) and (c) sharded_rank
+    over n spawned ranks: phase 8's sequences split r::n through
+    run_sequence_batched, then phase 11's global map over the kf group;
+    (d) spawn_local with n + 1 ranks raises and starts no process.
+    ``ref8``: phase 8's poses and flags on the host; ``ref11``: phase 11's
+    refined map on the host."""
+    import multiprocessing
+
+    import numpy as np
+    import torch
+    from stereo_svo_tpu_torch import entry
+    from stereo_svo_tpu_torch.parallel import mesh as mesh_mod
+
+    n = torch.cuda.device_count()
+    out = {"ranks": n, "device": smi}
+
+    # (a) the dry run, then its rank 0's steps again in this process on the
+    # same card, each kernel call held against its plain version at the
+    # dry run's own shapes (the tiny configuration's pyramid, N and P)
+    t0 = time.perf_counter()
+    reports = entry.dryrun_multichip(n, timeout_s=MULTI_TIMEOUT_S)
+    dryrun_s = time.perf_counter() - t0
+    tiny, card = entry._tiny_cfg(), torch.device("cuda", 0)
+    outs, calls = kernel_calls(lambda: entry._dryrun_steps(
+        tiny, *entry._dryrun_frames(tiny, n, 0, card), card))
+    pose_equal = bool(np.array_equal(outs.T_wc.cpu().numpy(),
+                                     reports[0].pop("T_wc")))
+    for rep in reports[1:]:
+        rep.pop("T_wc")
+    out["dryrun"] = {"wall_s": dryrun_s, "ranks": reports,
+                     "rank0_pose_equals_replay": pose_equal,
+                     "kernels_at_its_shapes": check_kernel_calls(calls)}
+    del calls
+    require(pose_equal, "phase 17 dry run: rank 0's tracked pose differs "
+                        "from the same steps in this process")
+    for r, rep in enumerate(reports):
+        require(rep["backend"] == "nccl" and rep["device"] == f"cuda:{r}",
+                f"phase 17 dry run: rank {r} ran on {rep['backend']}, "
+                f"{rep['device']}")
+        missing = [k for k, v in rep["launches"].items() if v < 1]
+        require(not missing, f"phase 17 dry run: rank {r} never launched "
+                             f"{missing}")
+
+    # (b) and (c): phase 8's sequences split over the ranks, phase 11's map
+    t_spawn = time.time()
+    ranks = mesh_mod.spawn_local(
+        sharded_rank, n, (cfg, BATCH, BATCH_FRAMES, DT, t_spawn),
+        timeout_s=MULTI_TIMEOUT_S)
+    wall_s = time.time() - t_spawn
+    for r in ranks:
+        require(r["backend"] == "nccl" and r["device"] == f"cuda:{r['rank']}",
+                f"phase 17: rank {r['rank']} ran on {r['backend']}, "
+                f"{r['device']}")
+        read = {"batched": r["launches_batched"], "map": r["launches_map"]}
+        # the map is built from stored thumbnails: no pyramid, so no B1
+        missing = [k for k, v in read["batched"].items() if v < 1] + [
+            k for k, v in read["map"].items() if v < 1 and k != "halfsample"]
+        require(not missing, f"phase 17: rank {r['rank']} never launched "
+                             f"{missing}")
+    traj = by_sequence(ranks, "T_wc", BATCH)
+    ok = by_sequence(ranks, "tracking_ok", BATCH)
+    kf = by_sequence(ranks, "kf_inserted", BATCH)
+    pos_err = np.linalg.norm(traj[..., 3] - ref8["T_wc"][..., 3], axis=-1)
+    flags_equal = bool(np.array_equal(ok, ref8["tracking_ok"])
+                       and np.array_equal(kf, ref8["kf_inserted"]))
+    map0 = ranks[0]
+    maps_agree = all(np.array_equal(r["kf_T_wk"], map0["kf_T_wk"])
+                     and np.array_equal(r["X"], map0["X"]) for r in ranks)
+    map_diff = max(float(np.abs(map0["kf_T_wk"] - ref11["kf_T_wk"]).max()),
+                   float(np.abs(map0["X"] - ref11["X"]).max()))
+    out.update({
+        "sharded_wall_s": wall_s, "sequences_by_rank": [
+            r["sequences"] for r in ranks],
+        "spawn_to_ready_s": [r["spawn_to_ready_s"] for r in ranks],
+        "capture_s": [r["capture_s"] for r in ranks],
+        "batched_frames_per_s": [r["batched_frames_per_s"] for r in ranks],
+        "frames_per_s": [r["frames_per_s"] for r in ranks],
+        "optimize_first_call_wall_ms": map0["optimize_first_call_wall_ms"],
+        "optimize_wall_ms": map0["optimize_wall_ms"],
+        "optimize_repeats_bit_for_bit": map0["repeats"],
+        "trajectories_equal_phase8": bool(
+            flags_equal and np.array_equal(traj, ref8["T_wc"])),
+        "flags_equal_phase8": flags_equal,
+        "pos_err_vs_phase8_first8_m": float(
+            pos_err[:, :BATCH_POS_FRAMES].max()),
+        "map_equal_phase11": bool(np.array_equal(map0["kf_T_wk"],
+                                                 ref11["kf_T_wk"])
+                                  and np.array_equal(map0["X"], ref11["X"])),
+        "map_vs_phase11_max_abs": map_diff, "ranks_agree_on_map": maps_agree,
+        "launches": {k: ranks[0]["launches_batched"][k]
+                     + ranks[0]["launches_map"][k]
+                     for k in ranks[0]["launches_batched"]},
+        "launches_batched": ranks[0]["launches_batched"],
+        "launches_map": ranks[0]["launches_map"]})
+    if n == 1:
+        # the same program on the same card as phases 8 and 11
+        require(out["trajectories_equal_phase8"],
+                f"phase 17: the rank's trajectories differ from phase 8's "
+                f"(positions by {float(pos_err.max())} m)")
+        require(out["map_equal_phase11"],
+                f"phase 17: the rank's global map differs from phase 11's "
+                f"by {map_diff}")
+    else:
+        # another batch composition: W7's tolerance
+        require(flags_equal and out["pos_err_vs_phase8_first8_m"]
+                <= BATCH_POS_TOL_M,
+                f"phase 17: sequences split over {n} ranks against phase 8: "
+                f"flags equal {flags_equal}, positions "
+                f"{out['pos_err_vs_phase8_first8_m']} m")
+    require(maps_agree and map0["repeats"],
+            "phase 17: the ranks' global maps differ, or a call does not "
+            "repeat")
+
+    # (d) no fallback: more ranks than cards raises before a process starts
+    marker = os.path.join(ROOT, "build", "chip_smoke_phase17_rank")
+    if os.path.exists(marker):
+        os.remove(marker)
+    raised = None
+    try:
+        mesh_mod.spawn_local(touch_rank, n + 1, (marker,), timeout_s=60.0)
+    except RuntimeError as e:
+        raised = str(e)
+    out["too_many_ranks"] = {"ranks": n + 1, "raised": raised,
+                             "process_started": os.path.exists(marker)
+                             or bool(multiprocessing.active_children())}
+    require(raised is not None and f"this machine has {n}" in raised,
+            f"phase 17: spawn_local with {n + 1} ranks on {n} cards did not "
+            f"raise naming the card count: {raised}")
+    require(not out["too_many_ranks"]["process_started"],
+            "phase 17: spawn_local started a rank it had no card for")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2986,8 +3356,8 @@ def main() -> int:
 
     # ---- phase 8: batched-8 ----
     mark("phase8")
-    phase8, states8, frames8 = batched_run(cfg, counters, device,
-                                           svo3.trajectory())
+    phase8, states8, frames8, host8 = batched_run(cfg, counters, device,
+                                                  svo3.trajectory())
     emit("phase8", phase8)
     detail["phase8"] = phase8
 
@@ -3033,7 +3403,7 @@ def main() -> int:
 
     # ---- phase 11: the global map over an nccl group of one ----
     mark("phase11")
-    phase11 = global_map_run(cfg, states8, counters)
+    phase11, host11 = global_map_run(cfg, states8, counters)
     emit("phase11", phase11)
     detail["phase11"] = phase11
 
@@ -3095,6 +3465,12 @@ def main() -> int:
     phase16 = bench_entry_points(phase3["ate_m"])
     emit("phase16", phase16)
     detail["phase16"] = phase16
+
+    # ---- phase 17: the multi-rank paths, one rank a GPU over nccl ----
+    mark("phase17")
+    phase17 = multi_rank_run(cfg, host8, host11, smi)
+    emit("phase17", phase17)
+    detail["phase17"] = phase17
     mark("end")
     seconds["total"] = clock[0] - t_start
     emit("seconds", seconds)
@@ -3142,7 +3518,8 @@ def main() -> int:
                "phase10_checkpoint": phase10["checkpoint"]["launches"],
                "phase11": phase11["launches"],
                "phase13_full_clutter": runs13["full"]["clutter"]["launches"],
-               "phase14": phase14["launches"]}
+               "phase14": phase14["launches"],
+               "phase17_rank0": phase17["launches"]}
     # measured: each graph's kernel nodes of this kernel (read from the
     # libcuda), and on phase 12's profiled frame the device's records of it
     # beside the counters' gain

@@ -130,10 +130,13 @@ def _solve_shard(mesh: mesh_mod.Mesh, axis: str, cam, cfg, whole: dict
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cut this rank's shard from a whole problem (a dict of numpy arrays
     under :func:`bundle_adjust_sharded`'s argument names; the optional ones
-    may be missing) and solve it with the other ranks of ``axis``."""
+    may be missing) and solve it with the other ranks of ``axis``, on this
+    rank's device (:func:`mesh.rank_device`)."""
+    device = mesh_mod.rank_device()
+
     def t(name):
         a = whole.get(name)
-        return None if a is None else torch.from_numpy(np.array(a))
+        return None if a is None else torch.from_numpy(np.array(a)).to(device)
     X, X_mask, obs_uv, obs_mask, obs_disp, obs_dmask = shard(
         mesh.index(axis), mesh.size(axis), t("X"), t("X_mask"), t("obs_uv"),
         t("obs_mask"), t("obs_disp"), t("obs_dmask"))
@@ -143,8 +146,9 @@ def _solve_shard(mesh: mesh_mod.Mesh, axis: str, cam, cfg, whole: dict
 
 
 def dryrun_rank(mesh: mesh_mod.Mesh, axis: str = "kf") -> torch.Tensor:
-    """One rank's part of the dry run, inside a live process group (CPU
-    tensors, so ``gloo``): one sharded BA on the seeded geometry. Asserts finite results and that
+    """One rank's part of the dry run, inside a live process group, on the
+    rank's device (its card under ``nccl``, the CPU under ``gloo``): one
+    sharded BA on the seeded geometry. Asserts finite results and that
     every rank of the axis holds the same poses bit for bit; returns the
     poses."""
     n = mesh.size(axis)
@@ -163,27 +167,31 @@ def dryrun_rank(mesh: mesh_mod.Mesh, axis: str = "kf") -> torch.Tensor:
 
 
 def _dryrun_local_rank(rank: int, n: int) -> np.ndarray:
-    return dryrun_rank(mesh_mod.make(n, axis_name="kf")).numpy()
+    return dryrun_rank(mesh_mod.make(n, axis_name="kf")).cpu().numpy()
 
 
-def dryrun(n_devices: int, timeout_s: float = 180.0) -> None:
+def dryrun(n_devices: int, timeout_s: float = 180.0, device="cuda") -> None:
     """Execute one distributed BA on tiny synthetic geometry over
-    ``n_devices`` CPU ranks of this machine (``gloo``)."""
-    mesh_mod.spawn_local(_dryrun_local_rank, n_devices, timeout_s=timeout_s)
+    ``n_devices`` ranks of this machine: one a GPU over ``nccl``, or CPU
+    ranks over ``gloo`` with ``device="cpu"`` (:func:`mesh.spawn_local`,
+    which raises where the cards are missing)."""
+    mesh_mod.spawn_local(_dryrun_local_rank, n_devices, timeout_s=timeout_s,
+                         device=device)
 
 
 def _local_rank(rank: int, n: int, cam, cfg, whole: dict):
     T_out, X_out = _solve_shard(mesh_mod.make(n, axis_name="kf"), "kf", cam,
                                 cfg, whole)
-    return T_out.numpy(), X_out.numpy()
+    return T_out.cpu().numpy(), X_out.cpu().numpy()
 
 
 def bundle_adjust_local(n: int, cam: CameraConfig, cfg: SvoConfig,
-                        timeout_s: float = 180.0, **whole):
-    """The sharded solver on a whole problem over n CPU ranks of this
-    machine (``gloo``), what a virtual CPU mesh is to the reference:
-    ``whole`` holds numpy arrays under :func:`bundle_adjust_sharded`'s
-    argument names. Returns every rank's (kf_T_wk', X' shard) as numpy, in
-    rank order."""
+                        timeout_s: float = 180.0, device="cuda", **whole):
+    """The sharded solver on a whole problem over n ranks of this machine:
+    one a GPU over ``nccl``, or, with ``device="cpu"``, CPU ranks over
+    ``gloo`` (what a virtual CPU mesh is to the reference;
+    :func:`mesh.spawn_local`). ``whole`` holds numpy arrays under
+    :func:`bundle_adjust_sharded`'s argument names. Returns every rank's
+    (kf_T_wk', X' shard) as numpy, in rank order."""
     return mesh_mod.spawn_local(_local_rank, n, (cam, cfg, whole),
-                                timeout_s=timeout_s)
+                                timeout_s=timeout_s, device=device)

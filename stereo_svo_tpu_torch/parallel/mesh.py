@@ -14,7 +14,9 @@ Axes:
 
 Nothing tells a process of its cluster: the caller passes the rendezvous
 address, the world size and the rank to :func:`initialize_multihost`.
-:func:`spawn_local` starts n CPU ranks on this machine for a dry run.
+:func:`spawn_local` starts n ranks on this machine, one a GPU over
+``nccl`` (rank r on ``cuda:r``) or, with ``device="cpu"``, n CPU ranks over
+``gloo``; :func:`rank_device` is where a rank's tensors live.
 """
 
 from __future__ import annotations
@@ -113,16 +115,28 @@ def make_2d(n_data: int, n_kf: int) -> Mesh:
     return Mesh(("data", "kf"), (n_data, n_kf), groups)
 
 
+def rank_device() -> torch.device:
+    """The device of this rank's tensors, inside a live default group:
+    the current card (``cuda:<current>``) under ``nccl``, the CPU under
+    ``gloo``."""
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
 def _local_rank(rank: int, n: int, init_method: str, out_dir: str,
-                fn: Callable, args: tuple) -> None:
-    torch.set_num_threads(1)
-    initialize_multihost(init_method, n, rank, device="cpu")
+                fn: Callable, args: tuple, kind: str) -> None:
+    cuda = kind == "cuda"
+    if not cuda:
+        torch.set_num_threads(1)
+    initialize_multihost(init_method, n, rank,
+                         device=f"cuda:{rank}" if cuda else "cpu")
     try:
         # every rank has joined the group before any can leave it: a rank
         # whose fn returns at once would otherwise tear its side down while
         # a slower rank is still connecting, and that rank fails with gloo's
         # "Connection closed by peer" in place of its own result or error
-        dist.barrier()
+        dist.barrier(device_ids=[rank] if cuda else None)  # on its card
         result = fn(rank, n, *args)
         torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
@@ -130,22 +144,45 @@ def _local_rank(rank: int, n: int, init_method: str, out_dir: str,
 
 
 def spawn_local(fn: Callable, n: int, args: tuple = (),
-                timeout_s: float = 180.0) -> List:
-    """Run ``fn(rank, n, *args)`` in n CPU processes of this machine,
-    joined in one ``gloo`` group (one torch thread each), and return the
-    ranks' results in rank order.
+                timeout_s: float = 180.0, device="cuda") -> List:
+    """Run ``fn(rank, n, *args)`` in n processes of this machine and return
+    the ranks' results in rank order: one rank a GPU, rank r on ``cuda:r``,
+    joined in one ``nccl`` group; with ``device="cpu"``, n CPU ranks in one
+    ``gloo`` group (one torch thread each). :func:`rank_device` tells
+    ``fn`` where its tensors go.
+
+    Raises RuntimeError before any process starts where CUDA is missing or
+    the machine has fewer GPUs than ``n``: there is no fallback to the CPU,
+    and no two ranks share a card (NCCL refuses two ranks of one
+    communicator on one GPU). ``device`` names the kind only: a device
+    with an index (``"cuda:1"``) raises ValueError, since rank r always
+    takes ``cuda:r``.
 
     The rendezvous is a file in a temporary directory, so concurrent
     callers cannot collide on a port. ``fn`` must be importable by the
-    child processes (a module-level function) and its result picklable.
-    A rank that fails raises here; ranks still running after ``timeout_s``
-    are killed and a TimeoutError is raised.
+    child processes (a module-level function) and its result picklable and
+    on the host (it goes through ``torch.save``). A rank that fails raises
+    here; ranks still running after ``timeout_s`` are killed and a
+    TimeoutError is raised.
     """
     import torch.multiprocessing as mp
 
+    dev = resolve(device)
+    if dev.index is not None:
+        raise ValueError(f"spawn_local: device={str(dev)!r}: rank r always "
+                         f"runs on cuda:r; pass device='cuda'")
+    kind = dev.type
+    if kind == "cuda":
+        cards = torch.cuda.device_count()
+        if cards < n:
+            raise RuntimeError(
+                f"spawn_local: {n} ranks need {n} GPUs, one a rank; this "
+                f"machine has {cards} (pass device='cpu' for gloo ranks on "
+                f"the CPU)")
     with tempfile.TemporaryDirectory(prefix="svo_spawn_") as tmp:
         init_method = "file://" + os.path.join(tmp, "store")
-        ctx = mp.spawn(_local_rank, args=(n, init_method, tmp, fn, args),
+        ctx = mp.spawn(_local_rank,
+                       args=(n, init_method, tmp, fn, args, kind),
                        nprocs=n, join=False)
         deadline = time.monotonic() + timeout_s
         try:

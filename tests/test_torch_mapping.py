@@ -1,6 +1,9 @@
 """``parallel/mapping`` against the reference: the global map of two
 sequences field by field, loop detection over it, the pose graph plus
-sharded BA over ``gloo`` process groups, and the cloud alignment.
+sharded BA over ``gloo`` process groups, and the cloud alignment; then
+chip_smoke.py's phase 17 (b)/(c) at this rig over spawned ``gloo`` ranks,
+held against one process of the port and against the JAX package's run of
+the same frames.
 
 The two per-sequence states come from the JAX runner (the configuration of
 tests/test_mapping.py) and are carried across with ``state_from_numpy``, so
@@ -8,6 +11,7 @@ both packages build their maps from identical inputs.
 """
 
 import dataclasses
+import time
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import torch_parallel_workers as workers
 from stereo_svo_tpu.config import CameraConfig as JCam
 from stereo_svo_tpu.config import SvoConfig as JCfg
@@ -22,7 +27,9 @@ from stereo_svo_tpu.engine import runner as jrunner
 from stereo_svo_tpu.io import synthetic as jsynth
 from stereo_svo_tpu.parallel import mapping as jmapping
 from stereo_svo_tpu_torch.config import CameraConfig, SvoConfig
+from stereo_svo_tpu_torch.engine import runner
 from stereo_svo_tpu_torch.engine import state as state_mod
+from stereo_svo_tpu_torch.io import synthetic
 from stereo_svo_tpu_torch.geometry import se3
 from stereo_svo_tpu_torch.parallel import mapping
 from stereo_svo_tpu_torch.parallel import mesh as mesh_mod
@@ -167,7 +174,7 @@ def test_optimize_global_map_over_two_ranks(gmaps, world_of_one):
     gmap_np = {k: v.numpy() for k, v in gmap._asdict().items()}
     ranks = mesh_mod.spawn_local(workers.optimize_map, 2,
                                  (CFG.camera, CFG, gmap_np),
-                                 timeout_s=SPAWN_TIMEOUT_S)
+                                 timeout_s=SPAWN_TIMEOUT_S, device="cpu")
     (T0, X0, c0), (T1, X1, c1) = ranks
     np.testing.assert_array_equal(T0, T1)
     np.testing.assert_array_equal(X0, X1)
@@ -196,3 +203,116 @@ def test_align_maps_umeyama_matches_reference():
     np.testing.assert_array_equal(ours.numpy(), ref)
     np.testing.assert_allclose(ours.numpy()[:, :3], R, atol=1e-3)
     np.testing.assert_allclose(ours.numpy()[:, 3], t, atol=5e-3)
+
+
+# chip_smoke phase 17 at this rig: SHARD_SEQS sequences of SHARD_FRAMES
+# frames, split r::n over the ranks
+SHARD_SEQS, SHARD_FRAMES, SHARD_DT = 4, 10, 0.15
+
+
+@pytest.fixture(scope="module")
+def one_process():
+    """The SHARD_SEQS sequences in one process through
+    ``run_sequence_batched``, and the global map of phase 17's sequences
+    (``chip_smoke.MAP_SEQS``), and that map refined over a gloo group of
+    one; and the reference on the same frames: JAX's
+    ``run_sequence_batched`` and ``build_global_map``, on the host."""
+    seqs = [synthetic.make_sequence(CFG.camera, SHARD_FRAMES, SHARD_DT,
+                                    kind="arc", seed=b, device="cpu")
+            for b in range(SHARD_SEQS)]
+    lefts = torch.stack([q[0] for q in seqs])
+    rights = torch.stack([q[1] for q in seqs])
+    jstates, jouts = jrunner.run_sequence_batched(
+        JCFG, jnp.asarray(lefts.numpy()), jnp.asarray(rights.numpy()))
+    jgmap = jmapping.build_global_map(JCFG, [
+        jax.tree.map(lambda x, b=b: x[b], jstates)
+        for b in chip_smoke.MAP_SEQS])
+    reference = (jax.tree.map(np.asarray, jouts),
+                 jax.tree.map(np.asarray, jgmap))
+    states, outs = runner.run_sequence_batched(CFG, lefts, rights,
+                                               device="cpu")
+    gmap = mapping.build_global_map(CFG, [
+        state_mod.SlamState(*(x[b] for x in states))
+        for b in chip_smoke.MAP_SEQS])
+    graph, _ = mapping.detect_loop_edges(CFG, gmap)
+    mesh_mod.initialize_multihost(device="cpu")
+    try:
+        refined, _ = mapping.optimize_global_map(
+            mesh_mod.make(1, axis_name="kf"), CFG.camera, CFG, gmap,
+            loop_edges=graph)
+    finally:
+        mesh_mod.shutdown()
+    return outs, gmap, refined, reference
+
+
+@pytest.mark.parametrize("n", [1, 2])
+def test_phase17_sequences_and_map_over_ranks(one_process, world_of_one, n):
+    """chip_smoke.sharded_rank over n gloo ranks: each rank's sequences
+    (r::n) through run_sequence_batched, the global map of MAP_SEQS
+    (broadcast from the ranks that ran them) over the kf group. One rank is
+    one process's run bit for bit; two ranks batch other sequences
+    together, so W7's tolerance (flags and keyframes equal, positions
+    within 2e-4 m over 8 frames): the map of MAP_SEQS holds the right
+    sequences' states to that tolerance, and, refined over two ranks,
+    equals the one-rank refinement of the same inputs to
+    test_optimize_global_map_over_two_ranks's tolerance. For any n the
+    ranks' flags, positions and map agree with the JAX package's on the
+    same frames."""
+    outs, gmap_one, refined, (jouts, jgmap) = one_process
+    ranks = mesh_mod.spawn_local(
+        chip_smoke.sharded_rank, n,
+        (CFG, SHARD_SEQS, SHARD_FRAMES, SHARD_DT, time.time()),
+        timeout_s=SPAWN_TIMEOUT_S, device="cpu")
+    assert [r["sequences"] for r in ranks] == [
+        list(range(r, SHARD_SEQS, n)) for r in range(n)]
+    for r in ranks:
+        assert (r["backend"], r["device"]) == ("gloo", "cpu")
+        assert r["capture_s"] == 0.0 and r["frames_per_s"] > 0
+        assert r["repeats"]
+        np.testing.assert_array_equal(r["kf_T_wk"], ranks[0]["kf_T_wk"])
+        np.testing.assert_array_equal(r["X"], ranks[0]["X"])
+    traj, ok, kf = (chip_smoke.by_sequence(ranks, key, SHARD_SEQS)
+                    for key in ("T_wc", "tracking_ok", "kf_inserted"))
+    np.testing.assert_array_equal(ok, outs.tracking_ok.numpy())
+    np.testing.assert_array_equal(kf, outs.kf_inserted.numpy())
+    assert kf.sum() >= SHARD_SEQS and ok.all()
+    # the ranks against the JAX package on the same frames: flags and
+    # keyframes equal, positions within 2e-4 m, and the map of MAP_SEQS as
+    # test_optimize_global_map_matches_reference holds it
+    np.testing.assert_array_equal(ok, jouts.tracking_ok)
+    np.testing.assert_array_equal(kf, jouts.kf_inserted)
+    np.testing.assert_allclose(traj[..., 3], jouts.T_wc[..., 3], atol=2e-4)
+    for name in ("kf_valid", "kf_seq", "X_mask", "obs_mask", "kf_stamp"):
+        np.testing.assert_array_equal(ranks[0]["map"][name],
+                                      getattr(jgmap, name))
+    np.testing.assert_allclose(ranks[0]["map"]["kf_T_wk"][..., 3],
+                               jgmap.kf_T_wk[..., 3], atol=2e-4)
+    keep = jgmap.X_mask
+    np.testing.assert_allclose(ranks[0]["map"]["X"][keep], jgmap.X[keep],
+                               atol=1e-3)
+    T0, X0 = ranks[0]["kf_T_wk"], ranks[0]["X"]
+    if n == 1:
+        np.testing.assert_array_equal(traj, outs.T_wc.numpy())
+        np.testing.assert_array_equal(T0, refined.kf_T_wk.numpy())
+        np.testing.assert_array_equal(X0, refined.X.numpy())
+        return
+    first = chip_smoke.BATCH_POS_FRAMES
+    np.testing.assert_allclose(traj[:, :first, :, 3],
+                               outs.T_wc.numpy()[:, :first, :, 3], atol=2e-4)
+    gmap_np = ranks[0]["map"]
+    for name in ("kf_valid", "kf_seq", "X_mask", "obs_mask", "kf_stamp"):
+        np.testing.assert_array_equal(gmap_np[name],
+                                      getattr(gmap_one, name).numpy())
+    np.testing.assert_allclose(gmap_np["kf_T_wk"][..., 3],
+                               gmap_one.kf_T_wk.numpy()[..., 3], atol=2e-4)
+    # the one-rank refinement of the map the ranks built, with its edges
+    gmap = mapping.GlobalMap(**{k: torch.from_numpy(v)
+                                for k, v in ranks[0]["map"].items()})
+    graph = mapping.pose_graph.PoseGraph(**{
+        k: torch.from_numpy(v) for k, v in ranks[0]["loop_edges"].items()})
+    one, _ = mapping.optimize_global_map(world_of_one, CFG.camera, CFG, gmap,
+                                         loop_edges=graph)
+    _check_geometry(gmap, T0, X0, ranks[0]["pg_cost"])
+    # float32 partial sums in another order, 3 iterations
+    np.testing.assert_allclose(T0, one.kf_T_wk.numpy(), atol=1e-5)
+    np.testing.assert_allclose(X0, one.X.numpy(), atol=1e-4)

@@ -28,6 +28,7 @@ from stereo_svo_tpu_torch import entry
 from stereo_svo_tpu_torch.backend import ba
 from stereo_svo_tpu_torch.backend import loop_closure
 from stereo_svo_tpu_torch.geometry import se3
+from stereo_svo_tpu_torch.ops.kernels import pyramid_kernel
 from stereo_svo_tpu_torch.parallel import dist_ba
 from stereo_svo_tpu_torch.parallel import mesh as mesh_mod
 
@@ -153,7 +154,8 @@ def _relative_difference(T, X, T_to, X_to) -> float:
 def test_sharded_ba_matches_single_process_and_reference(n, case):
     cam, cfg, whole = _problem(case)
     ranks = dist_ba.bundle_adjust_local(n, cam, cfg,
-                                        timeout_s=SPAWN_TIMEOUT_S, **whole)
+                                        timeout_s=SPAWN_TIMEOUT_S,
+                                        device="cpu", **whole)
     assert len(ranks) == n
     T = ranks[0][0]
     X = np.concatenate([x for _, x in ranks])
@@ -232,14 +234,15 @@ def test_sharded_ba_matches_single_process_and_reference(n, case):
 
 def test_reduce_fn_leaves_its_argument_untouched():
     assert mesh_mod.spawn_local(workers.reduce_leaves_argument, 2,
-                                timeout_s=SPAWN_TIMEOUT_S) == [True, True]
+                                timeout_s=SPAWN_TIMEOUT_S,
+                                device="cpu") == [True, True]
 
 
 def test_mesh_2d_groups():
     """(data, kf) = (2, 2) over 4 ranks: rank = data·2 + kf; the kf group
     joins a row, the data group a column; ``make(3)`` leaves rank 3 out."""
     got = mesh_mod.spawn_local(workers.mesh_2d_coordinates, 4, (2, 2),
-                               timeout_s=SPAWN_TIMEOUT_S)
+                               timeout_s=SPAWN_TIMEOUT_S, device="cpu")
     for rank, (d, k, sums, outside) in enumerate(got):
         assert (d, k) == (rank // 2, rank % 2)
         assert sums["kf"] == {0: 11.0, 1: 1100.0}[d]
@@ -249,13 +252,13 @@ def test_mesh_2d_groups():
 
 def test_spawn_local_kills_hung_ranks_at_its_time_limit():
     with pytest.raises(TimeoutError, match="still running"):
-        mesh_mod.spawn_local(workers.hang, 2, timeout_s=8.0)
+        mesh_mod.spawn_local(workers.hang, 2, timeout_s=8.0, device="cpu")
 
 
 def test_spawn_local_raises_a_rank_failure():
     with pytest.raises(Exception, match="rank 1 fails"):
         mesh_mod.spawn_local(workers.fail_on_rank_one, 2,
-                             timeout_s=SPAWN_TIMEOUT_S)
+                             timeout_s=SPAWN_TIMEOUT_S, device="cpu")
 
 
 def test_shard_cuts_the_landmark_axis():
@@ -280,12 +283,155 @@ def test_shard_cuts_the_landmark_axis():
 
 @pytest.mark.parametrize("n", [2, 4])
 def test_dist_ba_dryrun(n):
-    dist_ba.dryrun(n, timeout_s=SPAWN_TIMEOUT_S)
+    dist_ba.dryrun(n, timeout_s=SPAWN_TIMEOUT_S, device="cpu")
 
 
 def test_dryrun_multichip_4(capsys):
-    entry.dryrun_multichip(4, timeout_s=SPAWN_TIMEOUT_S)
+    reports = entry.dryrun_multichip(4, timeout_s=SPAWN_TIMEOUT_S,
+                                     device="cpu")
     assert "dryrun_multichip(4): OK" in capsys.readouterr().out
+    # gloo CPU ranks run the kernels' plain versions: no launch is counted
+    for rep in reports:
+        assert (rep["backend"], rep["device"]) == ("gloo", "cpu")
+        assert set(rep["launches"]) == {"halfsample", "gradients",
+                                        "sample_patches", "gn_accumulate"}
+
+
+@pytest.fixture()
+def no_process(monkeypatch):
+    """``torch.multiprocessing.spawn`` made to fail the test: a call that
+    must raise first starts no process."""
+    import torch.multiprocessing as mp
+
+    def spawn(*args, **kwargs):
+        raise AssertionError("a rank process was started")
+    monkeypatch.setattr(mp, "spawn", spawn)
+
+
+def _multi_rank_call(name: str):
+    """Each entry point that spawns ranks, called with 2 ranks on its
+    default device."""
+    cam, cfg, whole = _problem("mono")
+    return {
+        "spawn_local": lambda: mesh_mod.spawn_local(workers.fail_on_rank_one,
+                                                    2),
+        "dist_ba.dryrun": lambda: dist_ba.dryrun(2),
+        "bundle_adjust_local": lambda: dist_ba.bundle_adjust_local(
+            2, cam, cfg, **whole),
+        "dryrun_multichip": lambda: entry.dryrun_multichip(2),
+    }[name]
+
+
+MULTI_RANK_CALLS = ("spawn_local", "dist_ba.dryrun", "bundle_adjust_local",
+                    "dryrun_multichip")
+
+
+@pytest.mark.parametrize("name", MULTI_RANK_CALLS)
+def test_multi_rank_entry_points_raise_without_cuda(name, no_process,
+                                                    monkeypatch):
+    """The default device is the card: without CUDA each raises before a
+    process starts, with no fallback to gloo CPU ranks."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _multi_rank_call(name)()
+
+
+@pytest.mark.parametrize("name", MULTI_RANK_CALLS)
+def test_multi_rank_entry_points_need_a_card_a_rank(name, no_process,
+                                                    monkeypatch):
+    """2 ranks on a machine with 1 GPU: RuntimeError naming the card
+    count before a process starts (NCCL puts no two ranks on one card)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="2 ranks need 2 GPUs.*this "
+                                           "machine has 1"):
+        _multi_rank_call(name)()
+
+
+@pytest.mark.parametrize("device", ["cuda:1", "cpu:0"])
+def test_spawn_local_refuses_a_device_index(device, no_process,
+                                            monkeypatch):
+    """Rank r always takes cuda:r, so an index in ``device`` would be
+    ignored: it raises before a process starts."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(ValueError, match="rank r always runs on cuda:r"):
+        mesh_mod.spawn_local(workers.fail_on_rank_one, 1, device=device)
+
+
+def test_rank_device_is_the_cpu_in_a_gloo_rank():
+    assert mesh_mod.spawn_local(workers.backend_and_device, 2,
+                                timeout_s=SPAWN_TIMEOUT_S, device="cpu") \
+        == [("gloo", "cpu")] * 2
+
+
+@pytest.mark.parametrize("argv, cards, want", [
+    (["--device", "cpu"], 0, (8, "cpu")),      # the reference's 8 devices
+    (["3", "--device", "cpu"], 0, (3, "cpu")),
+    ([], 4, (4, "cuda")),                      # every card of the machine
+    (["2"], 4, (2, "cuda")),
+])
+def test_entry_arguments(argv, cards, want, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    assert entry.parse_args(argv) == want
+
+
+@pytest.fixture(scope="module")
+def dryrun_calls():
+    """chip_smoke phase 17 (a)'s record of the dry run's steps (rank 0 of
+    one), here on the CPU, where each op runs its plain version."""
+    import chip_smoke
+    cfg = entry._tiny_cfg()
+    outs, calls = chip_smoke.kernel_calls(lambda: entry._dryrun_steps(
+        cfg, *entry._dryrun_frames(cfg, 1, 0, "cpu"), "cpu"))
+    assert torch.isfinite(outs.T_wc).all()
+    return calls
+
+
+def test_phase17_dryrun_kernel_calls_at_their_shapes(dryrun_calls):
+    """Every kernel's calls in the dry run are recorded at the tiny
+    configuration's shapes (a 96×128 pyramid of 2 levels, N = 16, P = 4
+    and 8, one problem) and pass the check against the plain versions."""
+    import chip_smoke
+    rows = chip_smoke.check_kernel_calls(dryrun_calls)
+    assert set(rows) == set(chip_smoke.KERNEL_FUNCTIONS)
+    assert rows["halfsample"]["shapes"] == [[[1, 96, 128], 2]]
+    assert rows["gradients"]["shapes"] == [[[1, 96, 128], 2]]
+    assert {tuple(s[0]) for s in rows["sample_patches"]["shapes"]} == {
+        (1, 1, 96, 128), (1, 3, 96, 128), (1, 1, 48, 64), (1, 3, 48, 64)}
+    assert {s[2] for s in rows["sample_patches"]["shapes"]} == {4, 8}
+    assert {tuple(s[0]) for s in rows["gn_accumulate"]["shapes"]} == {
+        (1, 96, 128), (1, 48, 64)}
+    for name in ("sample_patches", "gn_accumulate"):   # N = 16 centres
+        assert {tuple(s[1]) for s in rows[name]["shapes"]} == {(1, 16, 2)}
+    for row in rows.values():
+        assert row["max_abs_err"] == 0.0 and row["calls"] >= 1
+
+
+@pytest.mark.parametrize("kernel", ["halfsample", "gradients",
+                                    "sample_patches", "gn_accumulate"])
+def test_phase17_dryrun_check_fails_a_wrong_kernel(dryrun_calls, kernel):
+    """One recorded result of one kernel made wrong by 1e-3 of its largest
+    entry: the check fails, naming that kernel."""
+    import chip_smoke
+    op = {"halfsample": "svo::pyramid", "gradients": "svo::pyramid",
+          "sample_patches": "svo::sample_patches",
+          "gn_accumulate": "svo::gn_accumulate"}[kernel]
+    i = next(i for i, c in enumerate(dryrun_calls) if c[0] == op)
+    name, args, out = dryrun_calls[i]
+    wrong = out.clone()
+    part = wrong                                # a view of what is checked
+    if op == "svo::pyramid":                    # level 1: image, then gx
+        img, levels = args
+        part = pyramid_kernel.level_views(wrong, *img.shape[-2:], levels)[1][
+            ..., 0 if kernel == "halfsample" else 1, :, :]
+    elif op == "svo::gn_accumulate":
+        part = wrong[..., :43]                  # H, g and cost
+    part[(0,) * part.dim()] += 1e-3 * float(part.abs().max())
+    calls = list(dryrun_calls)
+    calls[i] = (name, args, wrong)
+    with pytest.raises(chip_smoke.SmokeFailure, match=kernel):
+        chip_smoke.check_kernel_calls(calls)
 
 
 def test_entry_takes_one_step_on_the_cpu():

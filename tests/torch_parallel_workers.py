@@ -48,10 +48,19 @@ def fail_on_rank_one(rank: int, n: int):
     return rank
 
 
+def backend_and_device(rank: int, n: int):
+    """The default group's backend and where this rank's tensors go."""
+    import torch.distributed as dist
+    return dist.get_backend(), str(mesh_mod.rank_device())
+
+
 def optimize_map(rank: int, n: int, cam, cfg, gmap_np: dict):
-    """``mapping.optimize_global_map`` on a whole map given as numpy."""
-    gmap = mapping.GlobalMap(**{k: torch.from_numpy(np.array(v))
+    """``mapping.optimize_global_map`` on a whole map given as numpy, on
+    this rank's device."""
+    device = mesh_mod.rank_device()
+    gmap = mapping.GlobalMap(**{k: torch.from_numpy(np.array(v)).to(device)
                                 for k, v in gmap_np.items()})
     refined, pg_cost = mapping.optimize_global_map(
         mesh_mod.make(n, "kf"), cam, cfg, gmap)
-    return refined.kf_T_wk.numpy(), refined.X.numpy(), float(pg_cost)
+    return (refined.kf_T_wk.cpu().numpy(), refined.X.cpu().numpy(),
+            float(pg_cost))
