@@ -1124,10 +1124,12 @@ def prof_launches(fn, warmup=None):
         torch.cuda.synchronize()
     ka = p.key_averages()
     # with a schedule each step is also a user annotation on the device's
-    # timeline ("ProfilerStep#n"), spanning the step: no kernel
+    # timeline ("ProfilerStep#n"), spanning the step, and so is each
+    # profiler range of a graphed step ("svo.step", "svo.step.launch"): no
+    # kernel
     on_device = [e for e in ka
                  if str(getattr(e, "device_type", "")).endswith("CUDA")
-                 and not e.key.startswith("ProfilerStep")]
+                 and not e.key.startswith(("ProfilerStep", "svo."))]
 
     def count(keys):
         return sum(e.count for e in ka if e.key in keys)
@@ -1996,10 +1998,14 @@ def profile_frames(key, make, cfg, lefts, rights, counters, kinds) -> dict:
             prof["body_runs"] = {g: runs1[g] - runs0[g]
                                  for g in graph_step.graphs}
             nodes = graph_step.nodes
+            # F's own kernel nodes (the set nodes, the frame's stamps and
+            # those around P and flags), each body's nodes, and the two
+            # stamps inside each IF node that ran
+            ifs = {b for op, b in graph_step._plan if op == "if"}
             prof["records_expected"] = (
                 prof["kernels"] + prof["copies"] + nodes["F"]["kernel"]
                 + sum(n * (nodes[g]["kernel"] + nodes[g]["memcpy"]
-                           + nodes[g]["memset"])
+                           + nodes[g]["memset"] + 2 * (g in ifs))
                       for g, n in prof["body_runs"].items()))
         # the bootstrap aligns nothing: no B4
         prof.update(frame=t, counted=read_counters(

@@ -13,6 +13,17 @@
 // written by an earlier node is read by a later one, and a frame is one
 // graph launch with no host read. Conditional nodes need CUDA 12.4.
 //
+// Spans. A conditional body may hold no event node, so CUDA events cannot
+// time a body; a one-thread stamp kernel node that reads %globaltimer
+// can, at any level of the graph. The frame begins and ends with a stamp,
+// and every body sits between an entry and an exit stamp: in the outer
+// chain for a body every frame runs, inside the IF node's body graph for
+// the others. The stamps write one int64 table a step (layout below, the
+// same as the plain version's in engine/graphed.py): each body's runs and
+// summed nanoseconds, and a ring of one row a frame. The frame-exit stamp
+// advances the frame counter that picks the ring's row. A stamp costs one
+// kernel node (about a microsecond of the chain's time).
+//
 // Plain C interface (loaded with ctypes); every entry point returns a
 // cudaError_t.
 
@@ -33,6 +44,55 @@ __global__ void set_conditionals_kernel(SetWork w) {
   if (i < w.n) cudaGraphSetConditional(w.handle[i], *w.pred[i] ? 1u : 0u);
 }
 
+// What a stamp does (engine/graphed.py: FRAME_START ... CLOCK).
+enum StampOp { FRAME_START = 0, BODY_START = 1, BODY_END = 2, FRAME_END = 3,
+               CLOCK = 4 };
+
+// The span table of a step with n bodies, int64:
+//   runs[n] | ns[n] | frames | clock | start[n] | ring[ring][2 + 2n]
+// A ring row: the frame's start and end, then each body's nanoseconds in
+// the frame and its start after the frame's start (0 where it did not
+// run). The row of the frame that runs is frames % ring.
+struct Stamp {
+  long long* table;
+  int op, body, n, ring;
+};
+
+__global__ void stamp_kernel(Stamp s) {
+  long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  long long* t = s.table;
+  const int n = s.n, width = 2 + 2 * n;
+  long long* runs = t;
+  long long* ns = t + n;
+  long long* frames = t + 2 * n;
+  long long* start = t + 2 * n + 2;
+  long long* row = t + 3 * n + 2 + (*frames % s.ring) * width;
+  switch (s.op) {
+    case FRAME_START:
+      row[0] = now;
+      for (int i = 1; i < width; ++i) row[i] = 0;
+      break;
+    case BODY_START:
+      start[s.body] = now;
+      break;
+    case BODY_END: {
+      const long long d = now - start[s.body];
+      runs[s.body] += 1;
+      ns[s.body] += d;
+      row[2 + s.body] = d;
+      row[2 + n + s.body] = start[s.body] - row[0];
+      break;
+    }
+    case FRAME_END:
+      row[1] = now;
+      *frames += 1;
+      break;
+    default:  // CLOCK: the timer alone, for the clock's calibration
+      t[2 * n + 1] = now;
+  }
+}
+
 // After a node was added with `*last` as its dependency: on success it is
 // the chain's last node.
 int append(cudaError_t err, cudaGraphNode_t node, void** last) {
@@ -42,6 +102,21 @@ int append(cudaError_t err, cudaGraphNode_t node, void** last) {
 
 // The dependency list of a node added after `last` (none at the start).
 size_t deps(void* const* last) { return *last ? 1 : 0; }
+
+// A stamp kernel node in `graph` after *last.
+int add_stamp(cudaGraph_t graph, void** last, Stamp s) {
+  void* args[] = {&s};
+  cudaKernelNodeParams k = {};
+  k.func = (void*)stamp_kernel;
+  k.gridDim = dim3(1);
+  k.blockDim = dim3(1);
+  k.kernelParams = args;
+  cudaGraphNode_t node = nullptr;
+  const cudaGraphNode_t dep = (cudaGraphNode_t)*last;
+  const cudaError_t err = cudaGraphAddKernelNode(&node, graph, &dep,
+                                                 deps(last), &k);
+  return append(err, node, last);
+}
 
 }  // namespace
 
@@ -72,24 +147,54 @@ extern "C" int svo_graph_add_child(void* graph, void** last, void* child) {
   return append(err, node, last);
 }
 
-// An IF node on `handle` after *last, whose body is a child-graph node of
-// `body` (cloned). Fails where the body holds a node kind that a
-// conditional body may not (memory allocation or free, host, event).
+// A stamp node (op, body; see Stamp) of the table `table` after *last.
+extern "C" int svo_graph_add_stamp(void* graph, void** last, void* table,
+                                   int op, int body, int n, int ring) {
+  return add_stamp((cudaGraph_t)graph, last,
+                   Stamp{(long long*)table, op, body, n, ring});
+}
+
+// One stamp launched on `stream` (the calibration's CLOCK).
+extern "C" int svo_stamp(void* table, int op, int body, int n, int ring,
+                         void* stream) {
+  stamp_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
+      Stamp{(long long*)table, op, body, n, ring});
+  return (int)cudaGetLastError();
+}
+
+// An IF node on `handle` after *last, whose body graph is a chain: body
+// `body`'s entry stamp, a child-graph node of `child` (cloned), its exit
+// stamp. Fails where the child holds a node kind that a conditional body
+// may not (memory allocation or free, host, event).
 extern "C" int svo_graph_add_if(void* graph, void** last,
-                                unsigned long long handle, void* body) {
+                                unsigned long long handle, void* child,
+                                void* table, int body, int n, int ring) {
   cudaGraphNodeParams p = {};
   p.type = cudaGraphNodeTypeConditional;
   p.conditional.handle = (cudaGraphConditionalHandle)handle;
   p.conditional.type = cudaGraphCondTypeIf;
   p.conditional.size = 1;
-  cudaGraphNode_t node = nullptr, inner = nullptr;
+  cudaGraphNode_t node = nullptr;
   const cudaGraphNode_t dep = (cudaGraphNode_t)*last;
-  cudaError_t err = cudaGraphAddNode(&node, (cudaGraph_t)graph, &dep,
-                                     deps(last), &p);
+  const cudaError_t err = cudaGraphAddNode(&node, (cudaGraph_t)graph, &dep,
+                                           deps(last), &p);
   if (err != cudaSuccess) return (int)err;
-  err = cudaGraphAddChildGraphNode(&inner, p.conditional.phGraph_out[0],
-                                   nullptr, 0, (cudaGraph_t)body);
-  return append(err, node, last);
+  const cudaGraph_t inside = p.conditional.phGraph_out[0];
+  void* chain = nullptr;
+  int rc = add_stamp(inside, &chain,
+                     Stamp{(long long*)table, BODY_START, body, n, ring});
+  if (!rc) {
+    cudaGraphNode_t inner = nullptr;
+    const cudaGraphNode_t after = (cudaGraphNode_t)chain;
+    const cudaError_t e = cudaGraphAddChildGraphNode(&inner, inside, &after,
+                                                     1, (cudaGraph_t)child);
+    rc = append(e, inner, &chain);
+  }
+  if (!rc)
+    rc = add_stamp(inside, &chain,
+                   Stamp{(long long*)table, BODY_END, body, n, ring});
+  if (!rc) *last = node;
+  return rc;
 }
 
 // A kernel node after *last that sets handles[i] to preds[i] (device bools)

@@ -64,19 +64,32 @@ as its problem axis (the reference's jitted ``vmap``), and its predicates
 are the reference's batch-level conds (``step.device_flags_batched``,
 ``step.device_decisions_batched``).
 
-Launch accounting. The host does not know which bodies a frame ran, and
-the launch counters (``pyramid_kernel.LAUNCHES``, ``align_kernel.LAUNCHES``)
-do not move on a launch of ``F``. Each body instead adds 1 to its own slot
-of a device counter (one kernel node). After each capture the body's
-kernel nodes are read back through libcuda by function name (:func:`scan`);
-they must equal the launches the wrappers counted while capturing (capture
-raises otherwise). :func:`settle` (one read of each step's counter, a
-dropped step's too, outside the frames) adds each body's runs since the
-last settle times its kernel nodes to the launch counters.
+Spans and launch accounting. The host does not know which bodies a frame
+ran, and the launch counters (``pyramid_kernel.LAUNCHES``,
+``align_kernel.LAUNCHES``) do not move on a launch of ``F``. Instead ``F``
+stamps its own span table (:class:`_Spans`): one-thread kernel nodes that
+read the device's ``%globaltimer`` open and close the frame and every body
+(in the outer chain for ``P`` and ``flags``, inside the IF node's body
+graph for the others, around the body's child-graph node, so :func:`scan`
+of a body sees none). The table holds each body's runs and summed
+nanoseconds and a ring of the last :data:`RING` frames, one row a frame:
+its start and end and each body's time in it (the ``svo.frame`` and
+``svo.body.<name>`` spans). The host keeps a ring of its own, indexed by
+the launch count, so host row k and device row k are one frame: the
+step's call (``svo.step``: the image copies and the launch) and the launch
+of ``F`` in it (``svo.step.launch``), each a ``record_function`` range
+where a profiler is on. After each capture the body's kernel nodes are
+read back through libcuda by function name (:func:`scan`); they must equal
+the launches the wrappers counted while capturing (capture raises
+otherwise). :func:`settle` (one read of each step's table, a dropped
+step's too, outside the frames) adds each body's runs since the last
+settle times its kernel nodes to the launch counters. A step dropped on
+the card writes its spans with ``utils/profiling.write_spans``.
 
 On the CPU the same objects run the same bodies directly on the same
-static buffers, with no capture, and branch on the same predicates read
-with ``.item()``: the frame graph's plain version, on which the tests hold
+static buffers, with no capture, branch on the same predicates read with
+``.item()`` and stamp the same table on the host clock: the frame graph's
+plain version, on which the tests hold
 the copies to the eager ``step.make_step`` and ``step.make_batched_step``
 bit for bit. On CUDA there is no other path: a capture or a launch that
 fails raises.
@@ -88,6 +101,7 @@ across frames clones it.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import gc
 import re
@@ -95,12 +109,14 @@ import time
 import weakref
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..config import SvoConfig
 from ..device import resolve
 from ..ops import pyramid
 from ..ops.kernels import _build, align_kernel, pyramid_kernel
+from ..utils import profiling
 from .state import FrameOut, SlamState, init_state, init_states
 from .step import (device_decisions, device_decisions_batched,
                    device_flags, device_flags_batched, make_batched_phases,
@@ -121,6 +137,21 @@ _NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
 # what a conditional body may not hold (CUDA's rules for IF-node bodies)
 NOT_IN_A_BODY = ("host", "wait_event", "event_record", "mem_alloc",
                  "mem_free", "other")
+# the frames a span table's ring keeps, one row each
+RING = 8192
+# what a stamp does (csrc/frame_graph.cu: StampOp)
+FRAME_START, BODY_START, BODY_END, FRAME_END, CLOCK = range(5)
+HOST_COLUMNS = ("svo.step.start", "svo.step.end", "svo.step.launch.start",
+                "svo.step.launch.end")
+_NO_RANGE = contextlib.nullcontext()
+
+
+def _range(name: str):
+    """A profiler range named ``name`` where a profiler is on; else
+    nothing (one flag read)."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_RANGE
 
 
 class _KernelNodeParams(ctypes.Structure):
@@ -290,12 +321,15 @@ class _FrameGraph:
     body every frame runs, ("if", body) for one under its predicate,
     ("set", bodies) for the kernel node that sets those bodies' IF
     handles from their predicates — assembled in that order from the
-    bodies' captured graphs (csrc/frame_graph.cu) and instantiated."""
+    bodies' captured graphs (csrc/frame_graph.cu) between the frame's
+    start and end stamps, each body between stamps of its own, into the
+    span table ``spans``, and instantiated."""
 
     def __init__(self, plan, graphs: Dict[str, torch.cuda.CUDAGraph],
-                 preds: Dict[str, torch.Tensor]):
+                 preds: Dict[str, torch.Tensor], spans: "_Spans"):
         lib = _build.load_library()
         self._lib = lib
+        self._table = spans.table       # the stamps write it
         self._graph, self._exe = ctypes.c_void_p(), ctypes.c_void_p()
         weakref.finalize(self, _destroy_frame_graph, lib, self._graph,
                          self._exe)
@@ -316,25 +350,38 @@ class _FrameGraph:
                       f"the handle of {arg}")
                 handles[arg] = h.value
         last = ctypes.c_void_p()
+        table = ctypes.c_void_p(self._table.data_ptr())
+        n = len(spans.names)
+
+        def stamp(op, body=0):
+            check(lib.svo_graph_add_stamp(self._graph, ctypes.byref(last),
+                                          table, op, body, n, spans.ring),
+                  f"a stamp ({op}, {body})")
+
+        stamp(FRAME_START)
         for op, arg in plan:
             if op == "run":
+                stamp(BODY_START, spans.slot[arg])
                 check(lib.svo_graph_add_child(
                     self._graph, ctypes.byref(last),
                     ctypes.c_void_p(graphs[arg].raw_cuda_graph())),
                     f"body {arg}")
+                stamp(BODY_END, spans.slot[arg])
             elif op == "if":
                 check(lib.svo_graph_add_if(
                     self._graph, ctypes.byref(last), handles[arg],
-                    ctypes.c_void_p(graphs[arg].raw_cuda_graph())),
+                    ctypes.c_void_p(graphs[arg].raw_cuda_graph()), table,
+                    spans.slot[arg], n, spans.ring),
                     f"the conditional body {arg}")
             else:
-                n = len(arg)
+                k = len(arg)
                 check(lib.svo_graph_add_set(
                     self._graph, ctypes.byref(last),
-                    (ctypes.c_ulonglong * n)(*(handles[b] for b in arg)),
-                    (ctypes.c_void_p * n)(*(preds[b].data_ptr()
-                                            for b in arg)), n),
+                    (ctypes.c_ulonglong * k)(*(handles[b] for b in arg)),
+                    (ctypes.c_void_p * k)(*(preds[b].data_ptr()
+                                            for b in arg)), k),
                     f"the predicates of {arg}")
+        stamp(FRAME_END)
         check(lib.svo_graph_instantiate(self._graph,
                                         ctypes.byref(self._exe)),
               "instantiating")
@@ -358,9 +405,8 @@ def _capture_graphs(step) -> Tuple[float, int]:
     ``graph_names`` order, each body's kernel nodes held to what its
     capture counted and its node kinds to what a conditional body may
     hold, then ``F``. Capture synchronises, so it happens here and never
-    inside a frame. The warm-up writes into the live state and the body
-    counters, which are reset at the end. Returns (seconds, bytes the pool
-    holds)."""
+    inside a frame. The warm-up writes into the live state, which is reset
+    at the end. Returns (seconds, bytes the pool holds)."""
     t0 = time.perf_counter()
     dev = step.device
     with torch.cuda.device(dev):
@@ -369,7 +415,7 @@ def _capture_graphs(step) -> Tuple[float, int]:
         saved = _counts()
         with torch.cuda.stream(side):
             for name in step.graph_names:
-                step._body(name)
+                step._run_body(name)
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
         _set_counts(saved)          # the warm-up is set-up, not a frame
@@ -387,7 +433,7 @@ def _capture_graphs(step) -> Tuple[float, int]:
             # would overwrite it
             for name in step.graph_names:
                 graph, _, counted = capture(
-                    lambda: step._body(name), pool, side)
+                    lambda: step._run_body(name), pool, side)
                 step.nodes[name], step.kernel_nodes[name] = scan(graph)
                 if step.kernel_nodes[name] != counted:
                     raise RuntimeError(
@@ -406,52 +452,182 @@ def _capture_graphs(step) -> Tuple[float, int]:
             if collecting:
                 gc.enable()
         step._frame = _FrameGraph(step._plan, step.graphs,
-                                  step._pred_views)
+                                  step._pred_views, step._spans)
         step.nodes["F"], _ = scan(step._frame.raw)
         torch.cuda.synchronize(dev)
         pool_bytes = torch.cuda.memory_reserved(dev) - base
         step.reset()
-        step._runs.runs.zero_()
         torch.cuda.synchronize(dev)
     CAPTURES["steps"] += 1
     return time.perf_counter() - t0, pool_bytes
 
 
-class _Runs:
-    """A step's body run counter on the device (a slot a body: each run
-    adds 1), each body's kernel nodes, and the runs already added to the
-    launch counters. It outlives its step until :func:`settle` has added
-    its last runs."""
+class _Spans:
+    """A step's span table, its host ring, each body's kernel nodes and the
+    runs already added to the launch counters. It outlives its step until
+    :func:`settle` has added its last runs.
 
-    def __init__(self, names: Tuple[str, ...], device: torch.device):
-        self.names = names
-        self.runs = torch.zeros(len(names), dtype=torch.int64, device=device)
-        self.settled = [0] * len(names)
+    The table (int64, on the step's device; its layout is
+    csrc/frame_graph.cu's): each body's runs and summed nanoseconds, the
+    frame counter, and a ring of :data:`RING` rows, the frame's row at the
+    counter modulo the ring — the frame's start and end, each body's
+    nanoseconds in it and its start after the frame's (0 where it did not
+    run). On the card the frame graph's stamp nodes write it on the
+    device's clock, ``%globaltimer``, calibrated against the host's
+    (``time.perf_counter_ns``) when the table is made; on the CPU
+    :meth:`stamp` writes it on the host's. The host ring: the start and end
+    of the step's call and of its launch of the frame (:data:`HOST_COLUMNS`),
+    a row a launch."""
+
+    def __init__(self, names: Tuple[str, ...], device: torch.device,
+                 kind: str, batch: int):
+        n = len(names)
+        self.names, self.kind, self.batch = names, kind, batch
+        self.slot = {g: i for i, g in enumerate(names)}
+        self.ring = RING
+        self.head = 3 * n + 2
+        self.table = torch.zeros(self.head + self.ring * (2 + 2 * n),
+                                 dtype=torch.int64, device=device)
+        self.host = np.zeros((self.ring, len(HOST_COLUMNS)), np.int64)
+        self.launches = 0
+        self.settled = [0] * n
         self.kernel_nodes: Dict[str, Dict[str, int]] = {}
         self.step_alive = True
+        self._final: Optional[List[int]] = None    # runs, once released
+        self.device_minus_host_ns = 0
+        self.realtime_minus_host_ns = time.time_ns() - time.perf_counter_ns()
+        self.calibration_ns = 0
+        self._plain = None              # the CPU's views of the table
+        if device.type == "cuda":
+            self._calibrate()
+        else:
+            t = self.table.numpy()
+            self._plain = (t[:n], t[n:2 * n], t[2 * n:2 * n + 1],
+                           t[2 * n + 2:self.head],
+                           t[self.head:].reshape(self.ring, 2 + 2 * n))
 
-    def add(self, name: str) -> None:
-        i = self.names.index(name)
-        self.runs[i:i + 1] += 1
+    def _calibrate(self, tries: int = 5) -> None:
+        """The device clock against the host's: a stamp between two host
+        reads, each after a synchronisation; of ``tries``, the one whose
+        reads lie closest together, its stamp set at their midpoint."""
+        lib, dev = _build.load_library(), self.table.device
+        n, best = len(self.names), None
+        for _ in range(tries):
+            torch.cuda.synchronize(dev)
+            h0 = time.perf_counter_ns()
+            _build.raise_on_error(
+                lib.svo_stamp(self.table.data_ptr(), CLOCK, 0, n, self.ring,
+                              _build.stream(dev)), "stamp")
+            torch.cuda.synchronize(dev)
+            h1 = time.perf_counter_ns()
+            if best is None or h1 - h0 < best[0]:
+                best = (h1 - h0, int(self.table[2 * n + 1]) - (h0 + h1) // 2)
+        self.calibration_ns, self.device_minus_host_ns = best
 
-    def read(self) -> Dict[str, int]:
-        return dict(zip(self.names, self.runs.tolist()))
+    def stamp(self, op: int, body: int = 0) -> None:
+        """The plain version of a stamp node, on the host clock."""
+        now = time.perf_counter_ns()
+        runs, ns, frames, start, ring = self._plain
+        row = ring[frames[0] % self.ring]
+        if op == FRAME_START:
+            row[:] = 0
+            row[0] = now
+        elif op == BODY_START:
+            start[body] = now
+        elif op == BODY_END:
+            d = now - start[body]
+            runs[body] += 1
+            ns[body] += d
+            row[2 + body] = d
+            row[2 + len(self.names) + body] = start[body] - row[0]
+        else:
+            row[1] = now
+            frames[0] += 1
+
+    def host_span(self, *times: int) -> None:
+        """The host clock's readings of :data:`HOST_COLUMNS` for this
+        launch."""
+        self.host[self.launches % self.ring] = times
+        self.launches += 1
+
+    def runs(self) -> List[int]:
+        """Each body's runs (one read of the device)."""
+        if self.table is None:
+            return self._final
+        return self.table[:len(self.names)].tolist()
+
+    def record(self) -> dict:
+        """The spans as one JSON-ready object (one read of the device): the
+        step's kind and batch, the bodies, runs and nanoseconds by body,
+        the filled rows of the device ring and of the host ring, oldest
+        first, and the clocks' offsets."""
+        n = len(self.names)
+        t = self.table.cpu().numpy()
+        frames = int(t[2 * n])
+
+        def filled(ring, count):
+            return np.roll(ring, -(count % self.ring),
+                           axis=0)[self.ring - min(count, self.ring):]
+
+        ring = t[self.head:].reshape(self.ring, 2 + 2 * n)
+        return {
+            "kind": self.kind, "batch": self.batch,
+            "bodies": list(self.names),
+            "runs": dict(zip(self.names, t[:n].tolist())),
+            "ns": dict(zip(self.names, t[n:2 * n].tolist())),
+            "frames": frames, "launches": self.launches, "ring": self.ring,
+            "device_columns": ["svo.frame.start", "svo.frame.end",
+                               *(f"svo.body.{g}.ns" for g in self.names),
+                               *(f"svo.body.{g}.at" for g in self.names)],
+            "device_rows": filled(ring, frames).tolist(),
+            "host_columns": list(HOST_COLUMNS),
+            "host_rows": filled(self.host, self.launches).tolist(),
+            "clock": {"host": "time.perf_counter_ns",
+                      "device_minus_host_ns": self.device_minus_host_ns,
+                      "realtime_minus_host_ns": self.realtime_minus_host_ns,
+                      "calibration_ns": self.calibration_ns}}
+
+    def release(self) -> None:
+        """Keep the runs alone (the step is gone)."""
+        self._final = self.runs()
+        self.table = self.host = self._plain = None
 
     def settle(self) -> None:
         """Add the runs since the last settle, times each body's kernel
-        nodes, to the launch counters (one read). The flags body counts
-        the frames, so P's nodes go with it."""
-        runs = self.runs.tolist()
+        nodes, to the launch counters (one read)."""
+        runs = self.runs()
         for name, now, then in zip(self.names, runs, self.settled):
-            for body in ("P", name) if name == "flags" else (name,):
-                for key, n in self.kernel_nodes.get(body, {}).items():
-                    _COUNTER[key][key] += (now - then) * n
+            for key, n in self.kernel_nodes.get(name, {}).items():
+                _COUNTER[key][key] += (now - then) * n
         self.settled[:] = runs
 
 
-# the run counters of the steps made, until settle() has added the last
+def _dropped(spans: _Spans) -> None:
+    """A step is gone (its finalizer)."""
+    spans.step_alive = False
+    _release_dropped()
+
+
+def _release_dropped() -> None:
+    """The tables of the steps dropped since: on the card their spans are
+    written out (``profiling.write_spans``); the table and the rings go,
+    the runs stay until :func:`settle`. Not while a graph is captured or a
+    ``torch.func`` transform runs (a finalizer can run inside either): the
+    next call does it, from the next drop, :func:`settle` or step made."""
+    if torch._C._are_functorch_transforms_active() or (
+            torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing()):
+        return
+    for spans in _SPANS:
+        if not spans.step_alive and spans.table is not None:
+            if spans.table.is_cuda:
+                profiling.write_spans(spans.record)
+            spans.release()
+
+
+# the span tables of the steps made, until settle() has added the last
 # runs of a step that is gone
-_RUNS: List[_Runs] = []
+_SPANS: List[_Spans] = []
 # steps (single or batched) whose bodies were captured in this process:
 # how bench_torch.py shows that a path captures its step once
 CAPTURES = {"steps": 0}
@@ -460,24 +636,35 @@ CAPTURES = {"steps": 0}
 def settle() -> None:
     """Add every step's body runs since the last settle, times each
     body's kernel nodes, to the launch counters: one read of each step's
-    counter (the steps dropped since included). Call it outside the
+    table (the steps dropped since included). Call it outside the
     frames, before the counters are set or read."""
-    for runs in list(_RUNS):
-        runs.settle()
-        if not runs.step_alive:
-            _RUNS.remove(runs)
+    _release_dropped()
+    for spans in list(_SPANS):
+        spans.settle()
+        if not spans.step_alive:
+            _SPANS.remove(spans)
+
+
+def live_spans() -> List[_Spans]:
+    """The span tables of the steps alive in this process."""
+    return [s for s in _SPANS if s.step_alive]
 
 
 class _FrameStep:
     """What the single and the batched step share: the static buffers,
-    the body counters, the frame graph and its plain version. A subclass
-    sets ``_preds`` (a predicate slot per conditional body), ``_plan`` and
-    ``graph_names`` and defines ``_run_body(name)``."""
+    the span table, the frame graph and its plain version, the call. A
+    subclass sets ``_preds`` (a predicate slot per conditional body),
+    ``_plan`` and ``graph_names`` and defines ``_run_body(name)`` (run
+    body ``name``; dispatched by name: bodies bound to the step and kept
+    on it would make a reference cycle, and a step freed by the cyclic
+    collector during another step's capture would destroy its graphs
+    there, which invalidates that capture)."""
 
     _preds: Tuple[str, ...] = ()
 
     def _setup(self, cfg: SvoConfig, device, state: SlamState, hw,
-               graph_names, plan) -> None:
+               graph_names, plan, batch: Optional[int]) -> None:
+        """``batch``: the batched step's B, None for the single step."""
         self.cfg = cfg
         self.device = resolve(device)
         self.state: SlamState = state                       # S, live
@@ -502,31 +689,22 @@ class _FrameStep:
                                  device=self.device)
         self._pred_views = {b: self._pred[i]
                             for i, b in enumerate(self._preds)}
-        # a body's runs: the flags body counts the frames ("P" too)
-        self._runs = _Runs(tuple(g for g in self.graph_names if g != "P"),
-                           self.device)
+        self._spans = _Spans(self.graph_names, self.device,
+                             "single" if batch is None else "batched",
+                             batch or 1)
         self.graphs: Dict[str, torch.cuda.CUDAGraph] = {}
         self.nodes: Dict[str, Dict[str, int]] = {}         # scan(), by kind
-        self.kernel_nodes = self._runs.kernel_nodes        # by counter
+        self.kernel_nodes = self._spans.kernel_nodes       # by counter
         self._frame: Optional[_FrameGraph] = None
         self.capture_seconds = 0.0
         self.pool_bytes = 0
         if self.device.type == "cuda":
             self.capture_seconds, self.pool_bytes = _capture_graphs(self)
-        _RUNS.append(self._runs)
-        weakref.finalize(self, setattr, self._runs, "step_alive", False)
+        _release_dropped()
+        _SPANS.append(self._spans)
+        weakref.finalize(self, _dropped, self._spans)
 
     # --- the bodies ---
-
-    def _body(self, name: str) -> None:
-        """Run body ``name`` and add 1 to its counter. (Dispatched by name:
-        bodies bound to the step and kept on it would make a reference
-        cycle, and a step freed by the cyclic collector during another
-        step's capture would destroy its graphs there, which invalidates
-        that capture.)"""
-        self._run_body(name)
-        if name != "P":
-            self._runs.add(name)
 
     def _set_preds(self, **values: torch.Tensor) -> None:
         """Write 0-dim bool tensors into the predicates of the bodies
@@ -559,23 +737,40 @@ class _FrameStep:
     def _frame_plain(self) -> None:
         """The frame graph's plain version: the plan's bodies run directly,
         each conditional one where its predicate, read from the device,
-        holds."""
+        holds, stamped as ``F``'s stamp nodes stamp them."""
+        spans = self._spans
+        spans.stamp(FRAME_START)
         for op, arg in self._plan:
             if op == "run" or (op == "if" and self._pred_views[arg].item()):
-                self._body(arg)
+                spans.stamp(BODY_START, spans.slot[arg])
+                self._run_body(arg)
+                spans.stamp(BODY_END, spans.slot[arg])
+        spans.stamp(FRAME_END)
 
-    def _launch(self, img_l: torch.Tensor, img_r: torch.Tensor) -> None:
-        """The images into the static ones, then one frame: one launch of
-        ``F`` (CPU: its plain version)."""
-        for buf, img in ((self._img_l, img_l), (self._img_r, img_r)):
-            if tuple(img.shape) != tuple(buf.shape):
-                raise ValueError(f"image {tuple(img.shape)}: the step was "
-                                 f"made for {tuple(buf.shape)}")
-            buf.copy_(img)
-        if self._frame is None:
-            self._frame_plain()
-        else:
-            self._frame.launch(_build.stream(self._img_l.device))
+    def __call__(self, state: SlamState, img_l: torch.Tensor,
+                 img_r: torch.Tensor) -> Tuple[SlamState, FrameOut]:
+        """``state`` into the live buffers (unless it is them), the images
+        into the static ones, then one frame: one launch of ``F`` (CPU:
+        its plain version). Host spans ``svo.step`` (the call) and
+        ``svo.step.launch`` (the launch)."""
+        t0 = time.perf_counter_ns()
+        with _range("svo.step"):
+            if state is not self.state:
+                self.load(state)
+            for buf, img in ((self._img_l, img_l), (self._img_r, img_r)):
+                if tuple(img.shape) != tuple(buf.shape):
+                    raise ValueError(f"image {tuple(img.shape)}: the step "
+                                     f"was made for {tuple(buf.shape)}")
+                buf.copy_(img)
+            t1 = time.perf_counter_ns()
+            with _range("svo.step.launch"):
+                if self._frame is None:
+                    self._frame_plain()
+                else:
+                    self._frame.launch(_build.stream(self._img_l.device))
+            t2 = time.perf_counter_ns()
+        self._spans.host_span(t0, time.perf_counter_ns(), t1, t2)
+        return self.state, self._out
 
     def load(self, state: SlamState) -> None:
         """Copy ``state`` into the live buffers (fields that are those
@@ -587,10 +782,14 @@ class _FrameStep:
     @property
     def replays(self) -> Dict[str, int]:
         """Runs of each body since the step was made ("P" and "flags": the
-        frames), read from the device (one read)."""
-        runs = self._runs.read()
-        runs["P"] = runs["flags"]
+        frames), read from the span table (one read)."""
+        runs = dict(zip(self._spans.names, self._spans.runs()))
         return {g: runs.get(g, 0) for g in BATCH_GRAPHS}
+
+    def spans(self) -> dict:
+        """The step's spans as :meth:`_Spans.record` gives them (one read),
+        what a dropped step on the card writes out."""
+        return self._spans.record()
 
 
 class GraphedStep(_FrameStep):
@@ -613,7 +812,7 @@ class GraphedStep(_FrameStep):
              ("set", ("boot", "A_ok", "A_fail", "B")),
              ("if", "boot"), ("if", "A_ok"), ("if", "A_fail"),
              ("set", ("K", "K_loop")), ("if", "K"), ("if", "K_loop"),
-             ("if", "B")])
+             ("if", "B")], None)
 
     def _run_body(self, name: str) -> None:
         if name == "P":
@@ -650,13 +849,6 @@ class GraphedStep(_FrameStep):
     def reset(self) -> None:
         """Copy the initial state into the live buffers."""
         self.load(init_state(self.cfg, self.device))
-
-    def __call__(self, state: SlamState, img_l: torch.Tensor,
-                 img_r: torch.Tensor) -> Tuple[SlamState, FrameOut]:
-        if state is not self.state:
-            self.load(state)
-        self._launch(img_l, img_r)
-        return self.state, self._out
 
 
 class GraphedBatchedStep(_FrameStep):
@@ -700,7 +892,7 @@ class GraphedBatchedStep(_FrameStep):
              ("set", ("boot", "A_ok", "A_fail", "save", "B", "boot_mix")),
              ("if", "boot"), ("if", "A_ok"), ("if", "A_fail"),
              ("set", ("K", "K_loop")), ("if", "K"), ("if", "K_loop"),
-             ("if", "save"), ("if", "B"), ("if", "boot_mix")])
+             ("if", "save"), ("if", "B"), ("if", "boot_mix")], B)
 
     def _run_body(self, name: str) -> None:
         ph = self._phases
@@ -750,13 +942,6 @@ class GraphedBatchedStep(_FrameStep):
         """Copy the initial states into the live buffers."""
         self.load(init_states(self.cfg, self.B, self.device))
 
-    def __call__(self, states: SlamState, img_l: torch.Tensor,
-                 img_r: torch.Tensor) -> Tuple[SlamState, FrameOut]:
-        if states is not self.state:
-            self.load(states)
-        self._launch(img_l, img_r)
-        return self.state, self._out
-
 
 def make_graphed_step(cfg: SvoConfig, device="cuda") -> GraphedStep:
     """The per-frame step on static buffers, captured as one frame graph
@@ -778,5 +963,5 @@ def make_graphed_batched_step(cfg: SvoConfig, B: int, device="cuda"
 
 __all__ = ["make_graphed_step", "make_graphed_batched_step", "GraphedStep",
            "GraphedBatchedStep", "capture", "scan", "kernel_names",
-           "counter_of", "settle", "GRAPHS", "BATCH_GRAPHS", "KERNELS",
-           "NOT_IN_A_BODY", "CAPTURES"]
+           "counter_of", "settle", "live_spans", "GRAPHS", "BATCH_GRAPHS",
+           "KERNELS", "NOT_IN_A_BODY", "CAPTURES", "RING"]

@@ -50,7 +50,9 @@ _SIGNATURES = {
     "svo_graph_destroy": [_P],
     "svo_graph_cond_handle": [_P, _P],
     "svo_graph_add_child": [_P, _P, _P],
-    "svo_graph_add_if": [_P, _P, ctypes.c_ulonglong, _P],
+    "svo_graph_add_if": [_P, _P, ctypes.c_ulonglong, _P, _P, _I, _I, _I],
+    "svo_graph_add_stamp": [_P, _P, _P, _I, _I, _I, _I],
+    "svo_stamp": [_P, _I, _I, _I, _I, _P],
     "svo_graph_add_set": [_P, _P, _P, _P, _I],
     "svo_graph_instantiate": [_P, _P],
     "svo_graph_launch": [_P, _P],
