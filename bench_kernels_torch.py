@@ -34,6 +34,12 @@ epipolar segments (KITTI), ``epi_search_ms``. Each row gives:
   B1-B4 among them, by the kernel's launch counter (read through libcuda,
   ``engine/graphed.scan``).
 
+``align_ms`` on the card adds ``chain_graphed_ms`` and
+``chain_kernel_nodes`` (the chain of ops that ``align_levels_kernel``
+replaced, ``ops/align.align_plain``, as its own graph on the same
+arguments) and ``problems8_graphed_ms`` (the kernel over 8 initial poses
+in one launch, ``vmap``).
+
 ``full_step_ms``: the eager step on the tracked frame, and the graphed
 step's frame graph replayed on it (its kernel nodes: the bodies a tracked
 frame runs, P, flags, A_ok and B). ``step_nonkf_ms`` (the median of the
@@ -212,6 +218,32 @@ def graphed_ms(fn, args, stream, replays: int = GRAPH_REPLAYS):
     return ms, kinds, b_kernels
 
 
+def align_extra(args, stream) -> dict:
+    """The ``align_ms`` row's comparisons on the card: the chain of ops that
+    ``align_levels_kernel`` replaced (``ops/align.align_plain``: PyTorch ops,
+    B3 and B4) as its own graph on the same arguments, and the kernel over
+    8 problems (8 initial poses around the frame's, one launch)."""
+    import torch
+    from stereo_svo_tpu_torch.geometry import se3
+    from stereo_svo_tpu_torch.ops import align
+
+    levels, tmpl, cam, cfg, T_init = args
+    chain_ms, kinds, _ = graphed_ms(align.align_plain, args, stream)
+    gen = torch.Generator().manual_seed(0)
+    xi = (0.004 * torch.randn(8, 6, generator=gen)).to(T_init.device)
+    Ts = torch.stack([se3.compose(se3.exp(x), T_init) for x in xi])
+
+    def batch(Ts):
+        return torch.func.vmap(
+            lambda T: align.align(levels, tmpl, cam, cfg, T))(Ts)
+    b_ms, b_kinds, b_kernels = graphed_ms(batch, (Ts,), stream)
+    return {"chain_graphed_ms": chain_ms,
+            "chain_kernel_nodes": kinds["kernel"],
+            "problems8_graphed_ms": b_ms,
+            "problems8_kernel_nodes": b_kinds["kernel"],
+            "problems8_align_levels_nodes": b_kernels["align_levels"]}
+
+
 def step_graphed_ms(step, state, left, right,
                     replays: int = GRAPH_REPLAYS) -> float:
     """The graphed step's frame graph on one frame from ``state``: median
@@ -327,6 +359,8 @@ def stage_table(cfg, lefts, rights, at: int = AT, device="cuda",
             row["graphed_ms"], kinds, row["b_kernels"] = graphed_ms(
                 fn, args, stream)
             row["kernel_nodes"] = kinds["kernel"]
+            if name == "align_ms":
+                row.update(align_extra(args, stream))
         table[name] = row
     steady = ms[1:]
     step_nonkf = statistics.median(

@@ -19,7 +19,12 @@ Phases, one result line each, in order:
      (N=192, P=16) and the KLT widths N=240 (KITTI) and N=2048 (stress);
      B4 at N=192, 240 (KITTI) and 2048 (stress level 1), P=4, within 1e-4
      relative with exact counts, bit-reproducible, one CUDA launch per
-     call, and unchanged after calls at another width. Each row gives:
+     call, and unchanged after calls at another width; align_levels (the
+     whole alignment in one launch, align_rows) against the chain of ops,
+     B3 and B4 it replaced, within ALIGN_TOL_REL of each output's largest
+     entry, bit-reproducible, at the EuRoC, KITTI, stress and loop-edge
+     shapes and over 8 problems (8 sequences; 8 edges), each with its
+     graphed_us and the chain's chain_graphed_us. Each row gives:
      ms and plain_ms (median CUDA-event pair around one call, 60 runs);
      device_us (torch.profiler device time of the kernel's own CUDA
      functions per call over 200 back-to-back calls, or an event pair
@@ -61,7 +66,8 @@ Phases, one result line each, in order:
      reference, tail error and ATE within LOOP_TOL_M of it, tracking 1.0,
      one replay of graph K_loop per keyframe after the bootstrap, the
      online loop recorded into K_loop once and run eagerly only in the
-     warm-up, and B2, B3 and B4 among K_loop's kernel nodes beyond K's
+     warm-up, and B2, B3 and align_levels among K_loop's kernel nodes
+     beyond K's
      (its launches per online-loop call); reports the K_loop replays, the
      median online-loop keyframe frame, and for one eager call on the
      final state under torch.profiler its CUDA launches and device ms; per
@@ -228,12 +234,13 @@ measure_edges); each problem bit for bit its one-problem launch, the batch
 against the plain problem-axis version (B4 within 1e-4 of the largest
 entry), bound and library call for the whole batch.
 Each of phases 3-11 and 13-15 (each run of phase 13), and each rank of
-phase 17 (each part), zeroes the launch counters just before its run,
-reads them just after, and fails unless every kernel launched (the
-global map: B2-B4); a graphed step's frames launch their kernels
-inside the frame graph, whose bodies count their runs on the device, and
-the counters take each body's kernel nodes times its runs when they are
-zeroed or read (graphed.settle, outside the frames). Each counts host
+phase 17 (each part), zeroes the launch counters just before its run, reads
+them just after, and fails unless every kernel of the paths (PATH_KERNELS:
+B1-B3 and align_levels; B4 is off them) launched (the global map: B2, B3
+and align_levels); a graphed step's frames launch their kernels inside the
+frame graph, whose bodies count their runs on the device, and the counters
+take each body's kernel nodes times its runs when they are zeroed or read
+(graphed.settle, outside the frames). Each counts host
 syncs on every frame of the run (CUDA sync debug mode) and fails unless
 no frame has one, the bootstrap, keyframe frames with window BA, online
 loop closure and epipolar recoveries included (phase 8: per batched
@@ -399,13 +406,13 @@ STAGE_ROWS = ("pyramid_ms", "fast_score_l0_ms", "detector_ms", "align_ms",
               "pose_refine_ms", "stereo_match_ms", "depth_filter_ms",
               "kf_insert_ms", "window_ba_ms", "full_step_ms", "reloc_ms",
               "stereo_refresh_ms", "rebuild_template_ms")
-STAGE_B_NODES = {"align_ms": ("sample_patches", "gn_accumulate"),
+STAGE_B_NODES = {"align_ms": ("align_levels",),
                  "align_template_ms": ("sample_patches",),
                  "klt_ms": ("sample_patches",),
                  "klt_template_ms": ("sample_patches",),
                  "rebuild_template_ms": ("sample_patches",),
                  "full_step_ms": ("halfsample", "gradients",
-                                  "sample_patches", "gn_accumulate")}
+                                  "sample_patches", "align_levels")}
 STAGE_ACCOUNTING = ("per_op_sum_ms", "step_nonkf_ms",
                     "intra_frame_residual_ms", "kf_phase_ms", "kf_rate",
                     "model_frame_ms", "measured_frame_ms", "unaccounted_ms")
@@ -433,11 +440,16 @@ TPU_KERNELS = {                            # pl.pallas_call sites replaced
     "gradients": "stereo_svo_tpu/ops/pallas/pyramid_kernel.py:70",
     "sample_patches": "stereo_svo_tpu/ops/pallas/align_kernel.py:110",
     "gn_accumulate": "stereo_svo_tpu/ops/pallas/align_kernel.py:217",
+    # no Pallas kernel: the jnp chain of ops/align.py:align fused with
+    # gn_accumulate's accumulation
+    "align_levels": "none (fuses stereo_svo_tpu/ops/align.py:align with "
+                    "ops/pallas/align_kernel.py:217)",
 }
 SOURCES = {"halfsample": "stereo_svo_tpu_torch/csrc/pyramid.cu",
            "gradients": "stereo_svo_tpu_torch/csrc/pyramid.cu",
            "sample_patches": "stereo_svo_tpu_torch/csrc/align.cu",
-           "gn_accumulate": "stereo_svo_tpu_torch/csrc/align.cu"}
+           "gn_accumulate": "stereo_svo_tpu_torch/csrc/align.cu",
+           "align_levels": "stereo_svo_tpu_torch/csrc/align.cu"}
 # the CUDA functions each wrapper launches (as torch.profiler names them);
 # gn_partial_kernel/gn_final_kernel are the two-launch B4 of earlier trees,
 # which compare_kernels.py times
@@ -449,7 +461,15 @@ KERNEL_FUNCTIONS = {"halfsample": ("pyramid_levels_kernel",
                                   "gradients_kernel"),
                     "sample_patches": ("sample_patch_kernel",),
                     "gn_accumulate": ("gn_accumulate_kernel",
-                                      "gn_partial_kernel", "gn_final_kernel")}
+                                      "gn_partial_kernel", "gn_final_kernel"),
+                    "align_levels": ("align_levels_kernel",)}
+# the kernels the paths launch: B4 is off them since the alignment is one
+# align_levels launch (B4 keeps its phase-2 rows)
+PATH_KERNELS = ("halfsample", "gradients", "sample_patches", "align_levels")
+# align_levels against its plain version (the chain of ops, B3 and B4 on
+# the card): the largest error within ALIGN_TOL_ABS (the pose's entries) or
+# within ALIGN_TOL_REL of each output's largest entry (the cost)
+ALIGN_TOL_ABS, ALIGN_TOL_REL = 1e-5, 1e-4
 LIBRARY_CALLS = {
     "halfsample": "copy_ of the frame, then L-1 chained "
                   "torch.nn.functional.avg_pool2d(x, 2) calls",
@@ -460,6 +480,7 @@ LIBRARY_CALLS = {
                       "align_corners=True) on a grid built outside the "
                       "timed region (compared at interior centres)",
     "gn_accumulate": None,
+    "align_levels": None,
 }
 NO_LIBRARY_CALL = ("no single PyTorch call computes the sample, the Huber "
                    "weight and the normal equations together")
@@ -504,6 +525,52 @@ def cuda_ms(fn, n: int = N_TIMED, warmup: int = 5) -> float:
         pairs.append((a, b))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def graphed_us(fn, n: int = 100) -> float:
+    """Device µs of one replay of ``fn()`` captured alone as a CUDA graph
+    (after a warm-up on the capture stream): an event pair around ``n``
+    back-to-back replays. What a chain of ops costs inside the frame
+    graph, where the host is not on its path."""
+    import torch
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) * 1e3 / n
+
+
+def align_bytes_flops(N: int, P: int, schedule) -> tuple:
+    """The least bytes and the float32 operations of one alignment of N
+    features of P x P pixels on the levels of ``schedule`` ((refresh
+    passes, inner passes after each) a level): each level's template
+    (patches and Jacobians) read once, each pass's taps (N (P+1)^2 distinct
+    pixels of interior patches), the points, mask, pose in and 14 outputs;
+    per term ~45 operations to transform, project, test and sample, a
+    refresh pass samples three times and adds ~80 for the illumination
+    fit, the weights, H and g, an inner pass ~20 for e, b and the cost."""
+    terms = N * P * P
+    nbytes, flops = 4.0 * (3 * N + 12 + 14) + N, 0.0
+    for chunks, inner in schedule:
+        passes = chunks * (1 + inner)
+        nbytes += 4.0 * (7 * terms + passes * N * (P + 1) ** 2)
+        flops += terms * chunks * (3 * 45 + 80 + inner * (45 + 20))
+    return nbytes, flops
 
 
 def device_us(fn, functions, n: int = N_BACK):
@@ -1078,7 +1145,146 @@ def check_kernels(device, frame, kitti_frame, thumb):
                      f"{LOOP_EDGES} edges, loop inner passes")
     batch_gn_case(thumbs, t_uv8, "phase7", f"{LOOP_EDGES} edges, loop "
                   f"refresh pass", feature_mask=t_mask8)
+
+    align_rows(record, device, gen, img, kitti, thumb, edge)
     return rows
+
+
+def align_rows(record, device, gen, img, kitti, thumb, edge):
+    """Phase 2's rows of the fused alignment (align_levels_kernel): the
+    whole of ops/align.align in one launch against its chain of ops, B3 and
+    B4, at each path's shapes: a template of the frame at N centres (depths
+    2-5 m) aligned to a brightened, noised copy of the frame from a
+    perturbed pose; ``record`` is check_kernels' recorder."""
+    import torch
+    from stereo_svo_tpu_torch.backend import loop_closure
+    from stereo_svo_tpu_torch.config import (SvoConfig, kitti_config,
+                                             stress_config)
+    from stereo_svo_tpu_torch.geometry import se3
+    from stereo_svo_tpu_torch.ops import align, pyramid
+    from stereo_svo_tpu_torch.ops.kernels import _build
+    from stereo_svo_tpu_torch.ops.kernels import align_kernel as ak
+    from stereo_svo_tpu_torch.ops.kernels import pyramid_kernel as pk
+
+    H, W = img.shape
+    t_img, t_uv, t_mask = thumb
+
+    def align_problem(image, cam, acfg, uv, mask=None, thumb=False):
+        """(target levels, template, T_init): the template of ``image`` at
+        ``uv``, its target the image brightened (a, b) = (1.1, 3) with
+        noise (sigma 2), so the cost stays well above rounding."""
+        N = uv.shape[0]
+        noise = torch.randn(image.shape, generator=gen).to(device)
+        target = 1.1 * image + 3.0 + 2.0 * noise
+        if thumb:
+            levels = ((image,), *((g,) for g in pk.gradients(image)))
+            target_levels = (target,)
+        else:
+            levels = pyramid.build_with_gradients(image, acfg.num_levels)
+            target_levels = pyramid.build_with_gradients(
+                target, acfg.num_levels)[0]
+        z = (2.0 + 3.0 * torch.rand(N, generator=gen)).to(device)
+        if mask is None:
+            mask = torch.ones(N, dtype=torch.bool, device=device)
+        tmpl = align.make_template(*levels, cam, acfg, uv, z, mask)
+        xi = torch.tensor([0.004, -0.003, 0.006, 0.002, -0.001, 0.0015],
+                          device=device)
+        return target_levels, tmpl, se3.exp(xi)
+
+    def interior(N, h, w, margin):
+        return (torch.rand(N, 2, generator=gen)
+                * torch.tensor([w - 2.0 * margin, h - 2.0 * margin])
+                + margin).to(device)
+
+    def extra_of(s, N, kernel, plain, use, extra):
+        """A row's own keys: passes, block size, the kernel's and the
+        chain's graphed µs."""
+        return {"use": use, "levels": len(s.levels),
+                "passes": sum(c * (1 + i) for c, i in s.schedule),
+                "threads": _build.load_library().svo_align_threads(
+                    N, s.patch),
+                "graphed_us": graphed_us(kernel),
+                "chain_graphed_us": graphed_us(plain, 20),
+                "bound_note": "latency: the passes depend on each other",
+                **(extra or {})}
+
+    def align_case(levels, tmpl, T_init, cam, acfg, path, use, extra=None):
+        s = align.spec(cam, acfg)
+        lv = [levels[i] for i in s.levels]
+        N, P = tmpl.p_ref.shape[0], s.patch
+
+        def kernel():
+            return ak.align_levels(lv, tmpl.p_ref, tmpl.patches, tmpl.jac,
+                                   tmpl.mask, T_init, s)
+
+        def plain():
+            T, st = align.align_plain(levels, tmpl, cam, acfg, T_init)
+            return T, st["align_cost"], st["align_inlier_frac"]
+        first, again = kernel(), kernel()
+        require(all(torch.equal(a, b) for a, b in zip(first, again)),
+                f"align_levels {use}: not bit-reproducible")
+        nbytes, flops = align_bytes_flops(N, P, s.schedule)
+        record("align_levels", kernel, plain, ALIGN_TOL_ABS, ALIGN_TOL_REL,
+               [list(lv[0].shape), list(lv[-1].shape), N, P], path, nbytes,
+               flops, None, extra_of(s, N, kernel, plain, use, dict(
+                   bit_reproducible=True, **(extra or {}))))
+
+    def batch_align_case(levels, tmpl, T_init, cam, acfg, n, path, use,
+                         extra=None):
+        """n problems: the levels brightened by 0.5 b in problem b (the
+        template shared, expanded as a vmap leaves it) from n perturbed
+        poses."""
+        s = align.spec(cam, acfg)
+        lv = [torch.stack([levels[i] + 0.5 * b for b in range(n)])
+              for i in s.levels]
+        xi = 0.004 * torch.randn(n, 6, generator=gen).to(device)
+        Ts = torch.stack([se3.compose(se3.exp(xi[b]), T_init)
+                          for b in range(n)])
+        N, P = tmpl.p_ref.shape[0], s.patch
+
+        def kernel():
+            return torch.func.vmap(lambda T, *x: ak.align_levels(
+                list(x), tmpl.p_ref, tmpl.patches, tmpl.jac, tmpl.mask, T,
+                s))(Ts, *lv)
+
+        def plain():
+            T, st = torch.func.vmap(lambda T, *x: align.chain(
+                list(x), tmpl.p_ref, tmpl.patches, tmpl.jac, tmpl.mask, T,
+                s))(Ts, *lv)
+            return T, st["align_cost"], st["align_inlier_frac"]
+        out = kernel()
+        for b in range(n):
+            one = ak.align_levels([x[b] for x in lv], tmpl.p_ref,
+                                  tmpl.patches, tmpl.jac, tmpl.mask, Ts[b],
+                                  s)
+            require(all(torch.equal(o[b], y) for o, y in zip(out, one)),
+                    f"align_levels {use}: problem {b} differs from its "
+                    f"one-problem launch")
+        nbytes, flops = align_bytes_flops(N, P, s.schedule)
+        record("align_levels", kernel, plain, ALIGN_TOL_ABS, ALIGN_TOL_REL,
+               [n, list(lv[-1].shape[1:]), N, P], path, n * nbytes,
+               n * flops, None, extra_of(s, N, kernel, plain, use, dict(
+                   problems=n, each_problem_bit_equal=True, **(extra or {}))))
+
+    euroc_cfg, kitti_cfg, stress_cfg = (SvoConfig(), kitti_config(),
+                                        stress_config())
+    eu = align_problem(img, euroc_cfg.camera, euroc_cfg,
+                       interior(192, H, W, 24))
+    align_case(*eu, euroc_cfg.camera, euroc_cfg, "phase3", "tracking")
+    ki = align_problem(kitti, kitti_cfg.camera, kitti_cfg,
+                       interior(240, *kitti.shape, 24))
+    align_case(*ki, kitti_cfg.camera, kitti_cfg, "phase4", "KITTI tracking")
+    st = align_problem(img, stress_cfg.camera, stress_cfg,
+                       interior(2048, H, W, 24))
+    align_case(*st, stress_cfg.camera, stress_cfg, "phase5",
+               "stress tracking")
+    cam_t, cfg_t = loop_closure._thumb_cfg(euroc_cfg)
+    th = align_problem(t_img, cam_t, cfg_t, t_uv, mask=t_mask, thumb=True)
+    align_case(*th, cam_t, cfg_t, "phase7", "loop edge", extra=edge)
+    batch_align_case(*eu, euroc_cfg.camera, euroc_cfg, BATCH, "phase8",
+                     "8 sequences, tracking")
+    batch_align_case(*th, cam_t, cfg_t, LOOP_EDGES, "phase7",
+                     f"{LOOP_EDGES} edges, loop edge", extra=edge)
 
 
 def count_syncs(fn):
@@ -1383,7 +1589,7 @@ def loop_run(cfg, lefts, rights, gt, counters, device):
             "kf_frame_ms_median": statistics.median(
                 frame_ms[i] for i in call_frames)}
         missing = [x for x in ("gradients", "sample_patches",
-                               "gn_accumulate")
+                               "align_levels")
                    if out["loop_call"]["launches_per_call"][x] <= 0]
         require(not missing, f"an online-loop call launched no {missing}")
     return out, svo
@@ -1631,12 +1837,12 @@ def zero_counters(counters) -> None:
             counts[k] = 0
 
 
-def read_counters(counters, what: str, needs=None) -> dict:
-    """The launch counts since zero_counters; every kernel (or those named
-    in ``needs``) must have launched on the path ``what``."""
+def read_counters(counters, what: str, needs=PATH_KERNELS) -> dict:
+    """The launch counts since zero_counters; every kernel named in
+    ``needs`` (by default every kernel the paths launch) must have
+    launched on the path ``what``."""
     launches = counted(counters)
-    missing = [k for k, v in launches.items()
-               if v <= 0 and (needs is None or k in needs)]
+    missing = [k for k, v in launches.items() if v <= 0 and k in needs]
     require(not missing, f"kernels never launched {what}: {missing}")
     return launches
 
@@ -1872,7 +2078,7 @@ def global_map_run(cfg, states, counters):
         # the map is built from stored thumbnails: no pyramid, so no B1
         launches = read_counters(counters, "by the global map",
                                  needs=("gradients", "sample_patches",
-                                        "gn_accumulate"))
+                                        "align_levels"))
         opt_prof = prof_launches(optimize)
         ba_prof = prof_launches(
             lambda: dist_ba.bundle_adjust_sharded(*ba_args, **ba_kwargs))
@@ -2007,10 +2213,10 @@ def profile_frames(key, make, cfg, lefts, rights, counters, kinds) -> dict:
                 + sum(n * (nodes[g]["kernel"] + nodes[g]["memcpy"]
                            + nodes[g]["memset"] + 2 * (g in ifs))
                       for g, n in prof["body_runs"].items()))
-        # the bootstrap aligns nothing: no B4
+        # the bootstrap aligns nothing: no align_levels
         prof.update(frame=t, counted=read_counters(
-            counters, f"on the {key} frame {t}", needs=None if t else
-            ("halfsample", "gradients", "sample_patches")))
+            counters, f"on the {key} frame {t}", needs=PATH_KERNELS if t
+            else ("halfsample", "gradients", "sample_patches")))
         tries[kind].append(prof)
     for kind, v in tries.items():
         require(_matched(v),
@@ -2361,7 +2567,7 @@ def long_horizon_run(cfg, counters, device):
             f"phase 14: host syncs per frame {out['host_syncs_per_frame']} "
             f"(want 0 on every frame): {sites}")
     one_per_pyramid(out, "phase 14")
-    missing = [k for k in ("gradients", "sample_patches", "gn_accumulate")
+    missing = [k for k in ("gradients", "sample_patches", "align_levels")
                if refine_launches[k] <= 0]
     require(not missing, f"refine_trajectory launched no {missing}")
     return out
@@ -2716,7 +2922,8 @@ def check_bench_line(tag: str, p: dict, phase3_ate: float) -> None:
         runs.update(batched8_=p["batched8_launches"],
                     latency_=p["latency_launches"])
     for key, counts in runs.items():
-        missing = [k for k, v in counts.items() if v <= 0]
+        missing = [k for k, v in counts.items()
+                   if v <= 0 and k in PATH_KERNELS]
         require(not missing, f"{what}: kernels never launched in the "
                              f"{key}timed runs: {missing}")
     if tag.startswith("default"):
@@ -2748,7 +2955,8 @@ def check_stage_table(t: dict) -> None:
                     f"({row['b_kernels']})")
     pyr = t["pyramid_ms"]["b_kernels"]
     require(pyr["halfsample"] == 1 and pyr["gradients"] == 1
-            and pyr["sample_patches"] == pyr["gn_accumulate"] == 0,
+            and pyr["sample_patches"] == pyr["gn_accumulate"]
+            == pyr["align_levels"] == 0,
             f"phase 16 stages: the pyramid's kernel nodes {pyr}, not one "
             f"B1 and one B2")
     acc = t["accounting"]
@@ -2783,15 +2991,18 @@ def bench_entry_points(phase3_ate: float) -> dict:
 
 def kernel_calls(fn):
     """fn() with every call of the kernels' custom ops (``svo::pyramid``,
-    ``svo::gradients``, ``svo::sample_patches``, ``svo::gn_accumulate``)
-    recorded below vmap, where each op gets its problem axis: (fn's
-    result, [(op, arguments, result)], each tensor a copy)."""
+    ``svo::gradients``, ``svo::sample_patches``, ``svo::gn_accumulate``,
+    ``svo::align_levels``) recorded below vmap, where each op gets its
+    problem axis: (fn's result, [(op, arguments, result)], each tensor a
+    copy)."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
 
     calls = []
 
     def copy(x):
+        if isinstance(x, (list, tuple)):
+            return type(x)(copy(y) for y in x)
         return x.clone() if isinstance(x, torch.Tensor) else x
 
     class Record(TorchDispatchMode):
@@ -2811,8 +3022,9 @@ def check_kernel_calls(calls) -> dict:
     """Each recorded kernel call's result against its plain version on the
     same arguments, at phase 2's tolerances: B1, B2 and B3 bit for bit;
     B4's H, g and cost within 1e-4 of the largest entry, its counts
-    equal. Returns, per kernel, its calls, their argument shapes and the
-    largest errors; requires every kernel among them."""
+    equal; align_levels within ALIGN_TOL_REL of the largest entry. Returns,
+    per kernel, its calls, their argument shapes and the largest errors;
+    requires every kernel the path runs on the calls' device among them."""
     import torch
     from stereo_svo_tpu_torch.ops.kernels import align_kernel as ak
     from stereo_svo_tpu_torch.ops.kernels import pyramid_kernel as pk
@@ -2833,9 +3045,13 @@ def check_kernel_calls(calls) -> dict:
                 f"{name} {shape}: kernel disagrees with its plain version "
                 f"(abs {err_abs}, rel {err_rel})")
 
+    def shape_of(a):
+        if isinstance(a, (list, tuple)):
+            return [shape_of(x) for x in a]
+        return list(a.shape) if isinstance(a, torch.Tensor) else a
+
     for op, args, out in calls:
-        shape = [list(a.shape) if isinstance(a, torch.Tensor) else a
-                 for a in args]
+        shape = [shape_of(a) for a in args]
         if op == "svo::pyramid":
             img, levels = args
             h, w = img.shape[-2:]
@@ -2859,7 +3075,17 @@ def check_kernel_calls(calls) -> dict:
                     f"version")
             note("gn_accumulate", shape, out[..., :43], ref[..., :43],
                  tol_rel=1e-4)
-    missing = [k for k in KERNEL_FUNCTIONS if k not in rows]
+        elif op == "svo::align_levels":
+            # the pose, cost and inlier share after every pass: float32
+            # sums in another order than the chain's, judged relative
+            note("align_levels", shape, out, ak.align_levels_plain(*args),
+                 tol_rel=ALIGN_TOL_REL)
+    # on the CPU the alignment is the chain (B3 and B4); on the card one
+    # align_levels launch
+    cpu = any(a.device.type == "cpu" for _, args, _ in calls for a in args
+              if isinstance(a, torch.Tensor))
+    missing = [k for k in KERNEL_FUNCTIONS if k not in rows
+               and k != ("align_levels" if cpu else "gn_accumulate")]
     require(not missing, f"no recorded call of {missing}")
     return rows
 
@@ -3021,7 +3247,8 @@ def multi_rank_run(cfg, ref8: dict, ref11: dict, smi: str) -> dict:
         require(rep["backend"] == "nccl" and rep["device"] == f"cuda:{r}",
                 f"phase 17 dry run: rank {r} ran on {rep['backend']}, "
                 f"{rep['device']}")
-        missing = [k for k, v in rep["launches"].items() if v < 1]
+        missing = [k for k, v in rep["launches"].items()
+                   if v < 1 and k in PATH_KERNELS]
         require(not missing, f"phase 17 dry run: rank {r} never launched "
                              f"{missing}")
 
@@ -3037,8 +3264,10 @@ def multi_rank_run(cfg, ref8: dict, ref11: dict, smi: str) -> dict:
                 f"{r['device']}")
         read = {"batched": r["launches_batched"], "map": r["launches_map"]}
         # the map is built from stored thumbnails: no pyramid, so no B1
-        missing = [k for k, v in read["batched"].items() if v < 1] + [
-            k for k, v in read["map"].items() if v < 1 and k != "halfsample"]
+        missing = [k for k, v in read["batched"].items()
+                   if v < 1 and k in PATH_KERNELS] + [
+            k for k, v in read["map"].items()
+            if v < 1 and k in PATH_KERNELS and k != "halfsample"]
         require(not missing, f"phase 17: rank {r['rank']} never launched "
                              f"{missing}")
     traj = by_sequence(ranks, "T_wc", BATCH)

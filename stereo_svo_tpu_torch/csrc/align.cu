@@ -1,11 +1,12 @@
-// Patch sampling (B3) and the fused Gauss-Newton accumulation of sparse
-// image alignment (B4) for Hopper (sm_90a).
+// Patch sampling (B3), the fused Gauss-Newton accumulation of sparse
+// image alignment (B4) and the whole alignment in one launch
+// (align_levels_kernel, below B3 and B4) for Hopper (sm_90a).
 //
-// Replace the Pallas TPU kernels stereo_svo_tpu/ops/pallas/align_kernel.py
-// `sample_patches` (_sample_kernel) and `gn_accumulate` (_gn_kernel).
-// On the TPU those kernels read each patch's (P+1)^2 window out of VMEM
-// with one-hot micro-matmuls over an 8-aligned 16-row block, because Mosaic
-// has no cheap dynamic gather.
+// B3 and B4 replace the Pallas TPU kernels of
+// stereo_svo_tpu/ops/pallas/align_kernel.py `sample_patches` (_sample_kernel)
+// and `gn_accumulate` (_gn_kernel). On the TPU those kernels read each patch's
+// (P+1)^2 window out of VMEM with one-hot micro-matmuls over an 8-aligned
+// 16-row block, because Mosaic has no cheap dynamic gather.
 //
 // What bounds them here. At the main path's sizes (N = 192 centres, P = 4
 // or 8) B3 moves ~100 KB and B4 ~120 KB: 0.03-0.04 us at 3.35 TB/s, and B4's
@@ -67,6 +68,7 @@
 // caller's stream and returns cudaGetLastError(). Built with -fmad=false so
 // each multiply and add rounds as in the plain PyTorch version.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -435,6 +437,486 @@ void launch_gn(const float* img, int H, int W, const float* uv,
           partials, counter, out);
 }
 
+
+// ---------------------------------------------------------------------------
+// align_levels_kernel: the whole of ops/align.align in one launch.
+//
+// Replaces no Pallas kernel: it fuses the jnp chain of
+// stereo_svo_tpu/ops/align.py:align (every level, refresh pass and inner
+// pass of the coarse-to-fine inverse-compositional Gauss-Newton) with B4's
+// accumulation. Why: as a chain of PyTorch ops, B3 and B4 the alignment of
+// one EuRoC frame was ~3,135 kernel nodes of ~1.3 us each (4.3 ms graphed);
+// here it is one node. What bounds it: the latency of 15 dependent passes
+// (at the default (2, 3, 4, 8) schedule), each a sweep over N*P^2 terms
+// (3,072 at N = 192, P = 4), one to three reductions over the problem and,
+// on a refresh pass, one 6x6 factorisation and solve; its bytes (a level's
+// template, ~85 KB, and four taps a term, in L2 and L1) take well under a
+// microsecond a pass.
+//
+// Design. A cluster of kAlignCluster thread blocks a problem (the single step:
+// 1 problem; a batch of sequences: B; the loop closure: its edges), block r of
+// a cluster taking features N*r/8 to N*(r+1)/8 and their terms, blockDim a
+// multiple of 32 picked from the block's terms by svo_align_threads (about one
+// term a thread, at most 512). On the EuRoC shape, on an H100 (700 W), a
+// cluster of 8 took 98 us, of 4 107, of 2 125, one block of 512 threads 126
+// (its block-wide reductions), and 152 as a cluster of 1: a cluster barrier
+// costs ~0.9 us, and 29 reductions need one each. Thread i takes the terms t =
+// i, i + blockDim, ... of its block in every pass, so a thread's terms stay
+// its own in dynamic shared memory: each term's sample and whether it counts
+// during a refresh pass, then its Huber weight for the inner passes after it.
+// A pass begins by projecting the block's features into shared memory
+// (transform by T, project with the level's intrinsics, front: z > 1e-3, and
+// the template mask); a term offsets its feature's pixel to the patch pixel,
+// tests in_bounds with margin 1 and samples the level image with B3's taps_of
+// and blend (exactly interp.bilinear's taps).
+//
+// A refresh pass samples once, fits the illumination pair in two sweeps
+// as the chain does (sums of ok, ref*ok, cur*ok; then the covariance and
+// variance about those means; a clamped to [0.5, 2]), computes the Huber
+// weights and B4's 30 sums (H's upper triangle, g, the cost, n_eff,
+// n_inl); then warp 0 of every block, from the same sums, regularises H
+// (+ 1e-4 tr(H)/6 I + 1e-8 I), factors it once by
+// ops/solve.chol_solve_small's rule (same operations in the same order,
+// pivot floor 1e-20; the chain factors the same matrix for each of its 7
+// right-hand sides), solves for H^-1 and the step on 7 lanes, and sets
+// T <- T o exp(-step / a) (geometry/se3.exp's formula). An inner pass
+// samples again, forms e and b = sum J w e, the cost sum w e^2 / n_ok and
+// the inlier share, and sets T <- T o exp(-(H^-1 b) / a). The blocks of a
+// cluster hold the same pose, bit for bit, throughout.
+//
+// Reductions: a shuffle tree in each warp, the warps' sums in warp order,
+// then the blocks' sums in rank order through distributed shared memory;
+// no float atomics and a terms-to-threads map fixed by (N, P), so a call
+// repeats bit for bit and problem b of a launch equals its launch alone.
+// Float32 throughout (-fmad=false, no fast math): the result is the
+// chain's arithmetic up to the order of its sums.
+
+constexpr int kMaxAlignLevels = 8;
+constexpr int kAlignOut = 14;            // T (12), cost, inlier share
+constexpr int kAlignCluster = 8;          // thread blocks a problem
+constexpr int kAlignMaxThreads = 512;
+constexpr int kAlignTermsPerThread = 1;   // the block size aims at this
+constexpr int kAlignMaxWarps = kAlignMaxThreads / 32;
+constexpr size_t kMaxSharedBytes = 227 * 1024;   // a block's, on sm_90
+
+struct AlignLevel {
+  const float* img;       // problem 0's level image (H, W)
+  long img_stride;        // elements between two problems' images
+  int H, W;
+  float fx, fy, cx, cy;   // the level's intrinsics (camera.intrinsics)
+  float umax, vmax;       // in_bounds with margin 1: u, v <= w - 2, h - 2
+  int chunks, inner;      // refresh passes, inner passes after each
+};
+
+struct AlignArgs {
+  AlignLevel lv[kMaxAlignLevels];
+  int L, N;
+  const float* p_ref;            // (N, 3)
+  const float* patches;          // (L, N, P*P)
+  const float* jac;              // (L, N, P*P, 6)
+  const unsigned char* mask;     // (N,) bool
+  const float* T_init;           // (3, 4)
+  long s_p_ref, s_patches, s_jac, s_mask, s_T;   // problem strides
+  float huber_k;
+  int illum_affine;
+  float* out;                    // (B, kAlignOut)
+};
+
+__device__ __forceinline__ float clamp_lo_nan(float x, float lo) {
+  return x < lo ? lo : x;   // torch.clamp(x, min=lo): a NaN stays NaN
+}
+
+// Shared state of one block of a problem's alignment.
+struct AlignShared {
+  float part[kAlignMaxWarps * 30];   // cluster_sum's warp sums
+  float mine[2][32];                 // cluster_sum's block sums
+  float sum[30];                     // cluster_sum's totals
+  float T[12];
+  float Hinv[36];
+  float L[36];                       // Cholesky factor, row-major
+  float X[42];                       // the 7 solutions
+  float n_ok, cost, frac;
+};
+
+// Sum each of C per-thread values over the problem's cluster of blocks:
+// in each warp a fixed shuffle tree, then thread c of each block adds its
+// warps' sums in warp order, and after a cluster barrier adds the blocks'
+// sums in rank order from their shared memory (double-buffered: a buffer
+// is written again only after the next barrier, when every block has read
+// it). Every thread of every block gets the same C totals in sh.sum.
+template <int C>
+__device__ __forceinline__ void cluster_sum(const float (&v)[C],
+                                            AlignShared& sh, int& buf) {
+  namespace cg = cooperative_groups;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    float x = v[c];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      x += __shfl_down_sync(0xffffffffu, x, off);
+    if (lane == 0) sh.part[warp * C + c] = x;
+  }
+  __syncthreads();
+  if (threadIdx.x < C) {
+    float s = 0.0f;
+    for (int i = 0; i < nw; ++i) s += sh.part[i * C + threadIdx.x];
+    sh.mine[buf][threadIdx.x] = s;
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  if (threadIdx.x < C) {
+    float s = 0.0f;
+#pragma unroll
+    for (int r = 0; r < kAlignCluster; ++r)
+      s += *cluster.map_shared_rank(&sh.mine[buf][threadIdx.x], r);
+    sh.sum[threadIdx.x] = s;
+  }
+  __syncthreads();
+  buf ^= 1;
+}
+
+// se3.exp: twist (v, w) -> E (3x4, row-major), Rodrigues with the same
+// Taylor branches.
+__device__ void se3_exp(const float* xi, float* E) {
+  const float w0 = xi[3], w1 = xi[4], w2 = xi[5];
+  const float th2 = (w0 * w0 + w1 * w1) + w2 * w2;
+  const float th = sqrtf(th2 + 1e-16f);
+  float A, B, C;   // the small-angle branch skips the trigonometry
+  if (th2 < 1e-8f) {
+    A = 1.0f - th2 / 6.0f;
+    B = 0.5f - th2 / 24.0f;
+    C = (float)(1.0 / 6.0) - th2 / 120.0f;
+  } else {
+    const float sn = sinf(th), cs = cosf(th);
+    A = sn / th;
+    B = (1.0f - cs) / th2;
+    C = (th - sn) / (th2 * th);
+  }
+  const float W[9] = {0.0f, -w2, w1, w2, 0.0f, -w0, -w1, w0, 0.0f};
+  float WW[9];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      WW[i * 3 + j] = (W[i * 3] * W[j] + W[i * 3 + 1] * W[3 + j]) +
+                      W[i * 3 + 2] * W[6 + j];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    float t = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float I = i == j ? 1.0f : 0.0f;
+      E[i * 4 + j] = (I + A * W[i * 3 + j]) + B * WW[i * 3 + j];
+      const float V = (I + B * W[i * 3 + j]) + C * WW[i * 3 + j];
+      t = j == 0 ? V * xi[0] : t + V * xi[j];
+    }
+    E[i * 4 + 3] = t;
+  }
+}
+
+// T <- T o E (se3.compose: rotations multiplied, T's translation added).
+__device__ void se3_compose_into(float* T, const float* E) {
+  float out[12];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float s = (T[i * 4] * E[j] + T[i * 4 + 1] * E[4 + j]) +
+                      T[i * 4 + 2] * E[8 + j];
+      out[i * 4 + j] = j == 3 ? s + T[i * 4 + 3] : s;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 12; ++k) T[k] = out[k];
+}
+
+// The projections of features n0..n1-1 in one pass, from the block's
+// pose: each feature's level pixel (u, v) and whether it counts (in front,
+// z > 1e-3, and in the template mask), into proj (shared memory, one float4
+// a feature). The block synchronises after.
+__device__ __forceinline__ void project_features(
+    const AlignLevel& lv, const float* __restrict__ p_ref,
+    const unsigned char* __restrict__ mask, const float* T_sh, int n0,
+    int n1, float4* proj) {
+  float T[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) T[i] = T_sh[i];
+  for (int n = n0 + threadIdx.x; n < n1; n += blockDim.x) {
+    const float x0 = __ldg(p_ref + 3 * n), x1 = __ldg(p_ref + 3 * n + 1),
+                x2 = __ldg(p_ref + 3 * n + 2);
+    float pc[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)   // se3.transform: (R * x).sum(-1) + t
+      pc[i] = ((T[i * 4] * x0 + T[i * 4 + 1] * x1) + T[i * 4 + 2] * x2) +
+              T[i * 4 + 3];
+    const bool front = pc[2] > 1e-3f;   // camera.project
+    const float zs = front ? pc[2] : 1.0f;
+    const float u = lv.fx * pc[0] / zs + lv.cx;
+    const float v = lv.fy * pc[1] / zs + lv.cy;
+    proj[n - n0] =
+        make_float4(u, v, (front && mask[n] != 0) ? 1.0f : 0.0f, 0.0f);
+  }
+  __syncthreads();
+}
+
+// One term: the current image at patch pixel p of a feature projected to
+// pr, and whether the term counts (the feature counts and the pixel is in
+// bounds with margin 1).
+struct Term {
+  float cur;
+  bool ok;
+};
+
+__device__ __forceinline__ Term sample_term(const AlignLevel& lv,
+                                            const float* __restrict__ img,
+                                            float4 pr, int p, int P) {
+  const float half = (float)(P - 1) * 0.5f;
+  const int py = p / P, px = p - py * P;
+  const float pu = pr.x + ((float)px - half), pv = pr.y + ((float)py - half);
+  const float umax = (float)((double)lv.W - 1.000001);
+  const float vmax = (float)((double)lv.H - 1.000001);
+  const Taps tp = taps_of(pr.x, pr.y, p, P, lv.H, lv.W, umax, vmax);
+  const float* r0 = img + (size_t)tp.iv0 * lv.W;
+  const float* r1 = img + (size_t)tp.iv1 * lv.W;
+  Term t;
+  t.cur = blend(__ldg(r0 + tp.iu0), __ldg(r0 + tp.iu1), __ldg(r1 + tp.iu0),
+                __ldg(r1 + tp.iu1), tp.du, tp.dv);
+  t.ok = pr.z != 0.0f && pu >= 1.0f && pu <= lv.umax && pv >= 1.0f &&
+         pv <= lv.vmax;
+  return t;
+}
+
+
+// Dynamic shared memory of a block of N features: their projections
+// (float4 a feature), then each term's sample and later its Huber weight
+// (a float a term), then whether each term counts (a byte a term).
+__host__ __device__ inline size_t align_shared_bytes(int N, int P) {
+  return (size_t)N * sizeof(float4) + (size_t)N * P * P * (sizeof(float) + 1);
+}
+
+// The regularised 6x6 solve of a refresh pass, on warp 0: H + 1e-4 tr(H)/6
+// I + 1e-8 I (H from its upper triangle in sum[0..20]) factored by
+// ops/solve.chol_solve_small's rule, lane i < 6 holding row i and the rows
+// of a column computed at once (each entry with the chain's operations in
+// its order); lanes 0-6 then solve for the columns of H^-1 and for the
+// step (g in sum[21..26]), and lane 0 sets T <- T o exp(-step / a).
+__device__ void refresh_solve(AlignShared& sh, float a_il) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x;
+  if (lane == 0) {
+    const float n_ok = clamp_lo_nan(sh.sum[28], 1.0f);
+    sh.n_ok = n_ok;
+    sh.cost = sh.sum[27] / n_ok;
+    sh.frac = sh.sum[29] / n_ok;
+  }
+  float tr = sh.sum[0];   // the diagonal sits at 0, 6, 11, 15, 18, 20
+#pragma unroll
+  for (int i = 1; i < 6; ++i) tr = tr + sh.sum[i * 6 - i * (i - 1) / 2];
+  const float reg = 1e-4f * tr / 6.0f;
+  const int row = lane < 6 ? lane : 5;
+  float A[6], Lr[6];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    const int r = min(row, j), c = max(row, j);
+    A[j] = sh.sum[r * 6 - r * (r - 1) / 2 + (c - r)];
+    if (j == row) A[j] = (A[j] + reg) + 1e-8f;
+  }
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {   // column j: s - L[row][q] L[j][q], q up
+    float s = A[j];
+#pragma unroll
+    for (int q = 0; q < j; ++q) s = s - Lr[q] * __shfl_sync(full, Lr[q], j);
+    const float d = __shfl_sync(full, sqrtf(clamp_lo_nan(s, 1e-20f)), j);
+    Lr[j] = row == j ? d : (row > j ? s / d : 0.0f);
+  }
+  if (lane < 6) {
+#pragma unroll
+    for (int j = 0; j < 6; ++j) sh.L[lane * 6 + j] = Lr[j];
+  }
+  __syncwarp();
+  if (lane < 7) {   // e_lane (lane < 6) or g (lane 6)
+    float yv[6], x[6];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      float s = lane == 6 ? sh.sum[21 + i] : (i == lane ? 1.0f : 0.0f);
+#pragma unroll
+      for (int q = 0; q < i; ++q) s = s - sh.L[i * 6 + q] * yv[q];
+      yv[i] = s / sh.L[i * 7];
+    }
+#pragma unroll
+    for (int i = 5; i >= 0; --i) {
+      float s = yv[i];
+#pragma unroll
+      for (int q = i + 1; q < 6; ++q) s = s - sh.L[q * 6 + i] * x[q];
+      x[i] = s / sh.L[i * 7];
+    }
+#pragma unroll
+    for (int i = 0; i < 6; ++i) sh.X[lane * 6 + i] = x[i];
+  }
+  __syncwarp();
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < 36; ++i) sh.Hinv[i] = sh.X[i];
+    float xi[6], E[12];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) xi[i] = -sh.X[36 + i] / a_il;
+    se3_exp(xi, E);
+    se3_compose_into(sh.T, E);
+  }
+}
+
+template <int kP>
+__global__ void __cluster_dims__(kAlignCluster, 1, 1)
+    __launch_bounds__(kAlignMaxThreads)
+    align_levels_kernel(AlignArgs args, int P_arg) {
+  extern __shared__ float4 s_dyn[];
+  __shared__ AlignShared sh;
+  const int P = kP > 0 ? kP : P_arg;
+  const int P2 = P * P, N = args.N, NP2 = N * P2;
+  // this block's features n0..n1-1 of problem y, and their terms
+  const int rank = (int)(blockIdx.x % kAlignCluster);
+  const size_t y = blockIdx.x / kAlignCluster;
+  const int n0 = N * rank / kAlignCluster;
+  const int n1 = N * (rank + 1) / kAlignCluster;
+  const int NT = (n1 - n0) * P2, t0 = n0 * P2;
+  float4* proj = s_dyn;
+  float* s_w = reinterpret_cast<float*>(            // sample, then weight
+      s_dyn + (N + kAlignCluster - 1) / kAlignCluster);
+  unsigned char* s_ok = reinterpret_cast<unsigned char*>(s_w + NT);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const float* p_ref = args.p_ref + y * args.s_p_ref;
+  const unsigned char* mask = args.mask + y * args.s_mask;
+  const float k = args.huber_k;
+  int buf = 0;
+  if (tid < 12) sh.T[tid] = args.T_init[y * args.s_T + tid];
+  if (tid == 0) {
+    sh.cost = 0.0f;
+    sh.frac = 0.0f;
+  }
+  __syncthreads();
+
+  for (int li = 0; li < args.L; ++li) {
+    const AlignLevel lv = args.lv[li];
+    const float* img = lv.img + y * lv.img_stride;
+    const float* ref =
+        args.patches + y * args.s_patches + (size_t)li * NP2 + t0;
+    const float* jac =
+        args.jac + y * args.s_jac + ((size_t)li * NP2 + t0) * 6;
+    for (int ch = 0; ch < lv.chunks; ++ch) {
+      // ---- refresh pass: sample once (kept in s_w, s_ok for its sweeps)
+      project_features(lv, p_ref, mask, sh.T, n0, n1, proj);
+      float m3[3] = {0.0f, 0.0f, 0.0f};   // sum ok, ref*ok, cur*ok
+      for (int t = tid; t < NT; t += nt) {
+        const int n = t / P2;
+        const Term r = sample_term(lv, img, proj[n], t - n * P2, P);
+        s_w[t] = r.cur;
+        s_ok[t] = r.ok;
+        const float okf = r.ok ? 1.0f : 0.0f;
+        m3[0] += okf;
+        m3[1] += __ldg(ref + t) * okf;
+        m3[2] += r.cur * okf;
+      }
+      float a_il = 1.0f, b_il = 0.0f;
+      if (args.illum_affine) {   // the illumination pair, in two sweeps
+        cluster_sum<3>(m3, sh, buf);
+        const float sw = clamp_lo_nan(sh.sum[0], 1.0f);
+        const float m_ref = sh.sum[1] / sw, m_cur = sh.sum[2] / sw;
+        float cv[2] = {0.0f, 0.0f};   // covariance, variance
+        for (int t = tid; t < NT; t += nt) {
+          const float okf = s_ok[t] ? 1.0f : 0.0f;
+          const float dr = __ldg(ref + t) - m_ref;
+          cv[0] += ((s_w[t] - m_cur) * dr) * okf;
+          cv[1] += (dr * dr) * okf;
+        }
+        cluster_sum<2>(cv, sh, buf);
+        const float cov = sh.sum[0] / sw, var = sh.sum[1] / sw;
+        a_il = clampf_nan(cov / clamp_lo_nan(var, 1e-3f), 0.5f, 2.0f);
+        b_il = m_cur - a_il * m_ref;
+      }
+      float acc[30];
+#pragma unroll
+      for (int c = 0; c < 30; ++c) acc[c] = 0.0f;
+      for (int t = tid; t < NT; t += nt) {
+        const float msk = s_ok[t] ? 1.0f : 0.0f;
+        const float e = s_w[t] - (a_il * __ldg(ref + t) + b_il);
+        const float ae = fabsf(e);
+        const float wt = (ae <= k ? 1.0f : k / clamp_lo_nan(ae, 1e-6f)) * msk;
+        s_w[t] = wt;
+        const float2* j2 = reinterpret_cast<const float2*>(jac + (size_t)t * 6);
+        const float2 j01 = __ldg(j2), j23 = __ldg(j2 + 1), j45 = __ldg(j2 + 2);
+        const float J[6] = {j01.x, j01.y, j23.x, j23.y, j45.x, j45.y};
+        float Jw[6];
+#pragma unroll
+        for (int i = 0; i < 6; ++i) Jw[i] = J[i] * wt;
+        int c = 0;
+#pragma unroll
+        for (int i = 0; i < 6; ++i) {
+#pragma unroll
+          for (int j = i; j < 6; ++j) acc[c++] += Jw[i] * J[j];
+        }
+#pragma unroll
+        for (int i = 0; i < 6; ++i) acc[21 + i] += Jw[i] * e;
+        acc[27] += wt * e * e;
+        acc[28] += msk;
+        acc[29] += ae < k ? msk : 0.0f;
+      }
+      cluster_sum<30>(acc, sh, buf);
+      // every block of the cluster makes the same solve from the same sums
+      if (tid < 32) refresh_solve(sh, a_il);
+      __syncthreads();
+
+      // ---- inner passes: the refresh pass's weights and H^-1 ----
+      for (int it = 0; it < lv.inner; ++it) {
+        project_features(lv, p_ref, mask, sh.T, n0, n1, proj);
+        float bs[9];   // b (6), cost, inliers, terms ok
+#pragma unroll
+        for (int c = 0; c < 9; ++c) bs[c] = 0.0f;
+        for (int t = tid; t < NT; t += nt) {
+          const int n = t / P2;
+          const Term r = sample_term(lv, img, proj[n], t - n * P2, P);
+          const float e = r.cur - (a_il * __ldg(ref + t) + b_il);
+          const float wt = s_w[t];
+          const float2* j2 =
+              reinterpret_cast<const float2*>(jac + (size_t)t * 6);
+          const float2 j01 = __ldg(j2), j23 = __ldg(j2 + 1),
+                       j45 = __ldg(j2 + 2);
+          const float J[6] = {j01.x, j01.y, j23.x, j23.y, j45.x, j45.y};
+#pragma unroll
+          for (int i = 0; i < 6; ++i) bs[i] += J[i] * wt * e;
+          bs[6] += wt * e * e;
+          bs[7] += (fabsf(e) < k && r.ok) ? 1.0f : 0.0f;
+          bs[8] += r.ok ? 1.0f : 0.0f;
+        }
+        cluster_sum<9>(bs, sh, buf);
+        if (tid == 0) {   // T <- T o exp(-(H^-1 b) / a)
+          sh.cost = sh.sum[6] / sh.n_ok;
+          sh.frac = sh.sum[7] / clamp_lo_nan(sh.sum[8], 1.0f);
+          float xi[6], E[12];
+#pragma unroll
+          for (int i = 0; i < 6; ++i) {
+            float s = sh.Hinv[i * 6] * sh.sum[0];
+#pragma unroll
+            for (int j = 1; j < 6; ++j) s = s + sh.Hinv[i * 6 + j] * sh.sum[j];
+            xi[i] = -(s / a_il);
+          }
+          se3_exp(xi, E);
+          se3_compose_into(sh.T, E);
+        }
+        __syncthreads();
+      }
+    }
+  }
+  if (rank == 0) {
+    if (tid < 12) args.out[y * kAlignOut + tid] = sh.T[tid];
+    if (tid == 12) args.out[y * kAlignOut + 12] = sh.cost;
+    if (tid == 13) args.out[y * kAlignOut + 13] = sh.frac;
+  }
+  // no block leaves while another may still read its sums
+  cooperative_groups::this_cluster().sync();
+}
+
 }  // namespace
 
 // B3 over B problems: problem b's (K, H, W) images at img + b * img_stride,
@@ -500,5 +982,101 @@ extern "C" int svo_gn_accumulate(
   else
     launch_gn<0>(img, H, W, uv, tmpl, jac, mask, N, P, a_il, b_il, st,
                  huber_k, partials, counter, out, blocks, B, s);
+  return (int)cudaGetLastError();
+}
+
+// Threads of each align_levels block for N features of P x P pixels (a
+// block takes up to ceil(N / kAlignCluster) of them): about
+// kAlignTermsPerThread terms a thread, a whole number of warps, at most
+// kAlignMaxThreads.
+extern "C" int svo_align_threads(int N, int P) {
+  const long terms =
+      (long)((N + kAlignCluster - 1) / kAlignCluster) * P * P;
+  long warps = (terms + 32L * kAlignTermsPerThread - 1) /
+               (32L * kAlignTermsPerThread);
+  if (warps < 1) warps = 1;
+  if (warps > kAlignMaxWarps) warps = kAlignMaxWarps;
+  return (int)(warps * 32);
+}
+
+// The whole alignment of B problems, a cluster of kAlignCluster blocks each
+// (align_levels_kernel).
+// Per level li (coarse to fine, L <= kMaxAlignLevels): problem 0's image at
+// level_ptr[li], problems level_stride[li] elements apart, level_hw[2 li],
+// level_hw[2 li + 1] its H, W; intr[4 li..] its (fx, fy, cx, cy);
+// bounds[2 li..] in_bounds' (w - 2, h - 2); sched[2 li..] its refresh
+// passes and the inner passes after each. The template and T_init: problem
+// b's arrays at b times the strides given (0: shared by all problems;
+// jac's stride even, jac 8-byte aligned, for its float2 loads). out:
+// (B, 14) [T row-major, cost, inlier share]. threads: a block's, a
+// multiple of 32 up to 512 (svo_align_threads gives the one the wrapper
+// uses).
+extern "C" int svo_align_levels(
+    const long long* level_ptr, const long* level_stride, const int* level_hw,
+    const float* intr, const float* bounds, const int* sched, int L,
+    const float* p_ref, long p_ref_stride, const float* patches,
+    long patches_stride, const float* jac, long jac_stride,
+    const unsigned char* mask, long mask_stride, const float* T_init,
+    long T_stride, int N, int P, float huber_k, int illum_affine,
+    float* out, int B, int threads, void* stream) {
+  if (L < 0 || L > kMaxAlignLevels || N < 0 || P < 1 || B < 0 ||
+      B > kMaxProblems || threads < 32 || threads > kAlignMaxThreads ||
+      threads % 32 || jac_stride % 2 || ((size_t)jac & 7))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaGetLastError();
+  AlignArgs a{};
+  for (int i = 0; i < L; ++i) {
+    AlignLevel& lv = a.lv[i];
+    lv.img = reinterpret_cast<const float*>(level_ptr[i]);
+    lv.img_stride = level_stride[i];
+    lv.H = level_hw[2 * i];
+    lv.W = level_hw[2 * i + 1];
+    lv.fx = intr[4 * i];
+    lv.fy = intr[4 * i + 1];
+    lv.cx = intr[4 * i + 2];
+    lv.cy = intr[4 * i + 3];
+    lv.umax = bounds[2 * i];
+    lv.vmax = bounds[2 * i + 1];
+    lv.chunks = sched[2 * i];
+    lv.inner = sched[2 * i + 1];
+    if (lv.H < 1 || lv.W < 1 || lv.chunks < 0 || lv.inner < 0)
+      return (int)cudaErrorInvalidValue;
+  }
+  a.L = L;
+  a.N = N;
+  a.p_ref = p_ref;
+  a.patches = patches;
+  a.jac = jac;
+  a.mask = mask;
+  a.T_init = T_init;
+  a.s_p_ref = p_ref_stride;
+  a.s_patches = patches_stride;
+  a.s_jac = jac_stride;
+  a.s_mask = mask_stride;
+  a.s_T = T_stride;
+  a.huber_k = huber_k;
+  a.illum_affine = illum_affine;
+  a.out = out;
+  const size_t shared =
+      align_shared_bytes((N + kAlignCluster - 1) / kAlignCluster, P);
+  if (shared + sizeof(AlignShared) > kMaxSharedBytes)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define SVO_ALIGN(kP)                                                        \
+  do {                                                                       \
+    if (shared + sizeof(AlignShared) > 48 * 1024) {                          \
+      const cudaError_t err = cudaFuncSetAttribute(                          \
+          align_levels_kernel<kP>,                                           \
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);         \
+      if (err != cudaSuccess) return (int)err;                               \
+    }                                                                        \
+    align_levels_kernel<kP>                                                  \
+        <<<(unsigned)B * kAlignCluster, threads, shared, s>>>(a, P);         \
+  } while (0)
+  if (P == 4)
+    SVO_ALIGN(4);
+  else
+    SVO_ALIGN(0);
+#undef SVO_ALIGN
   return (int)cudaGetLastError();
 }

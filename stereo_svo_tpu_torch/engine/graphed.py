@@ -23,11 +23,11 @@ The bodies, in the order ``F`` runs them:
   ``track_phase`` with ``prev_ok`` True / False (False adds the rotated
   relocalisation variants), its state copied into the static ``S'`` and
   its ``TrackCtx`` into a static one, then ``step.device_decisions`` into
-  the predicates of ``K`` and ``K_loop`` (B3, B4);
+  the predicates of ``K`` and ``K_loop`` (B3, ``align_levels``);
 * ``K`` (``need_kf & !run_loop``) / ``K_loop`` (``run_loop``): ``kf_phase``
   on ``S'`` — ``keyframe.insert`` (B3 in the stereo match) and, with
   ``use_ba``, window BA; ``K_loop`` adds the online loop closure (B2, B3,
-  B4 at the thumbnail, the pose graph) and exists only when
+  ``align_levels`` at the thumbnail, the pose graph) and exists only when
   ``online_loop_every > 0`` — its state copied back into ``S'``;
 * ``B`` (``booted``): ``post_phase`` on ``S'``, its state copied back into
   ``S`` (what donation is to JAX) and its ``FrameOut`` into the static one
@@ -42,17 +42,16 @@ node of ``csrc/frame_graph.cu`` sets the IF nodes' handles from them
 track bodies. ``S'`` has a buffer of its own for every field of the state.
 
 The bodies are captured when the step is made, on one side stream after a
-warm-up of every body on that stream (which also allocates B4's scratch
-for it, ``align_kernel._scratch``, and pays the first ``jacfwd``'s
-set-up), into one memory pool, ``P`` first (the pyramid outlives its
-capture). The data that passes between bodies lives in buffers allocated
-outside the pool (``S``, ``S'``, the context, the output, the predicates)
-or in the pyramid, which stays referenced; a body's pool memory holds only
-its own temporaries. ``F`` clones the bodies' graphs as child-graph nodes
-and is the only graph instantiated. A conditional body may hold only
-kernel, memset, device-to-device memcpy, empty, child-graph and
-conditional nodes: capture raises on a body that holds any other kind (a
-memory allocation or free, a host or an event node), and building ``F``
+warm-up of every body on that stream (which also pays the first
+``jacfwd``'s set-up), into one memory pool, ``P`` first (the pyramid
+outlives its capture). The data that passes between bodies lives in buffers
+allocated outside the pool (``S``, ``S'``, the context, the output, the
+predicates) or in the pyramid, which stays referenced; a body's pool memory
+holds only its own temporaries. ``F`` clones the bodies' graphs as
+child-graph nodes and is the only graph instantiated. A conditional body
+may hold only kernel, memset, device-to-device memcpy, empty, child-graph
+and conditional nodes: capture raises on a body that holds any other kind
+(a memory allocation or free, a host or an event node), and building ``F``
 raises on a card or CUDA without conditional nodes (12.4 and later have
 them). Capture synchronises, so it happens here and never inside a frame.
 
@@ -400,8 +399,8 @@ def _capture_graphs(step) -> Tuple[float, int]:
     """Capture every body of ``step`` (a :class:`GraphedStep` or
     :class:`GraphedBatchedStep`) into one pool on one side stream and
     assemble its frame graph: first a warm-up of every body on that stream
-    (lazy state, B4's scratch for the stream, cuSOLVER's and cuBLAS's
-    handles, the first ``jacfwd``'s set-up), then the captures in
+    (lazy state, cuSOLVER's and cuBLAS's handles, the first ``jacfwd``'s
+    set-up), then the captures in
     ``graph_names`` order, each body's kernel nodes held to what its
     capture counted and its node kinds to what a conditional body may
     hold, then ``F``. Capture synchronises, so it happens here and never

@@ -74,8 +74,8 @@ def _dryrun_frames(cfg: SvoConfig, n: int, rank: int, device) -> tuple:
 
 def _dryrun_steps(cfg: SvoConfig, left, right, device):
     """The dry run's steps on one sequence: the bootstrap step, then one
-    tracked step on the same frames (a bootstrap runs no alignment, so B4
-    launches only there), through the eager batched step. Returns the
+    tracked step on the same frames (a bootstrap runs no alignment, so
+    ``align_levels`` launches only there), through the eager batched step. Returns the
     tracked step's FrameOut."""
     from .engine.state import init_states
     from .engine.step import make_batched_step

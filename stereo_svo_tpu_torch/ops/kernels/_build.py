@@ -45,6 +45,9 @@ _SIGNATURES = {
     "svo_gn_scratch_floats": [],
     "svo_gn_accumulate": [_P, _L, _I, _I, _P, _L, _P, _L, _P, _L, _P, _L,
                           _I, _I, _P, _L, _P, _L, _F, _P, _P, _P, _I, _P],
+    "svo_align_threads": [_I, _I],
+    "svo_align_levels": [_P, _P, _P, _P, _P, _P, _I, _P, _L, _P, _L, _P, _L,
+                         _P, _L, _P, _L, _I, _I, _F, _I, _P, _I, _I, _P],
     # the frame graph's assembly (csrc/frame_graph.cu)
     "svo_graph_create": [_P],
     "svo_graph_destroy": [_P],

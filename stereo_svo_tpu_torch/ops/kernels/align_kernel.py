@@ -1,5 +1,6 @@
-"""Alignment kernels B3 (patch sampling) and B4 (fused Gauss-Newton
-accumulation): CUDA wrappers, plain PyTorch versions and launch counters.
+"""Alignment kernels B3 (patch sampling), B4 (fused Gauss-Newton
+accumulation) and ``align_levels_kernel`` (the whole alignment in one
+launch): CUDA wrappers, plain PyTorch versions and launch counters.
 
 Source note. Replaces the Pallas TPU kernels
 ``stereo_svo_tpu/ops/pallas/align_kernel.py::sample_patches``
@@ -30,20 +31,42 @@ and the host's cost per call decide their time, not bytes or operations.
   (partials and counter) is allocated once per device, stream and number
   of problems, and reused in stream order.
 
-The problem axis. Both kernels take B independent problems in one launch
-(the reference's ``jax.vmap`` over sequences or loop edges): B3 (B,K,H,W)
-images at (B,M,2) centres give (B,K,M,P²), B4 B systems give (B,45), each
-problem with its own partials and ticket counter. Problem b equals its
-one-problem launch bit for bit. The paths reach them through the
-functional custom ops ``svo::sample_patches`` and ``svo::gn_accumulate``,
-whose ``torch.func.vmap`` rules move the batch dims to the front, expand an
-argument that every problem shares (a template, a shared image) without a
-copy, and make one problem-axis launch (nested ``vmap`` too: sequences ×
-edges). On the CPU an op runs the plain version; on CUDA its kernel, with
-no fallback between the two.
+``align_levels_kernel`` (``svo::align_levels``) replaces no Pallas
+kernel: it fuses the ``jnp`` chain of ``stereo_svo_tpu/ops/align.py:align``
+(every level, refresh pass and inner pass of the coarse-to-fine IC
+Gauss-Newton) with B4's accumulation. Why: on the graphed main path that
+chain was ~3,135 kernel nodes a frame (4.3 ms of a 9.4-ms frame); it is one.
+What bounds it: the latency of 15 dependent passes, each a sweep over
+N·P² terms, one to three reductions over the problem and, on a refresh
+pass, a 6×6 factorisation and solve; not bytes. Design: a cluster of 8
+thread blocks a problem, each taking an eighth of the features, reducing
+through distributed shared memory; the features projected once a pass into
+shared memory; each thread's terms, their samples and Huber weights, in
+shared memory between the sweeps and passes that reuse them; the refresh
+pass's illumination fit in two sweeps, B4's 30 sums, one factorisation by
+``solve.chol_solve_small``'s rule for H⁻¹ and the step, ``se3.exp``'s
+formula; no float atomics, so a call repeats bit for bit. Its plain version
+is ``ops/align.chain``, problem by problem; ``csrc/align.cu`` gives the
+design in full.
+
+The problem axis. All three kernels take B independent problems in one
+launch (the reference's ``jax.vmap`` over sequences or loop edges): B3
+(B,K,H,W) images at (B,M,2) centres give (B,K,M,P²), B4 B systems give
+(B,45), each problem with its own partials and ticket counter, and
+``align_levels`` B alignments give (B,14), a cluster each. Problem b equals
+its one-problem launch bit for bit. The paths reach them through the
+functional custom ops ``svo::sample_patches``, ``svo::gn_accumulate`` and
+``svo::align_levels``, whose ``torch.func.vmap`` rules move the batch dims
+to the front, expand an argument that every problem shares (a template, a
+shared image) without a copy, and make one problem-axis launch (nested
+``vmap`` too: sequences × edges). On the CPU an op runs the plain
+version; on CUDA its kernel, with no fallback between the two.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import List
 
 import torch
 
@@ -51,12 +74,15 @@ from .. import interp
 from . import _build
 from .pyramid_kernel import _vmap_rule
 
-LAUNCHES = {"sample_patches": 0, "gn_accumulate": 0}
+LAUNCHES = {"sample_patches": 0, "gn_accumulate": 0, "align_levels": 0}
 # the CUDA function each counter's launches run (csrc/align.cu)
 KERNELS = {"sample_patches": "sample_patch_kernel",
-           "gn_accumulate": "gn_accumulate_kernel"}
+           "gn_accumulate": "gn_accumulate_kernel",
+           "align_levels": "align_levels_kernel"}
 MAX_IMAGES = 3   # images one B3 launch samples (csrc/align.cu kMaxImages)
 N_OUT = 45       # B4's outputs a problem: H (36), g (6), cost, n_eff, n_inl
+ALIGN_OUT = 14   # align_levels' outputs a problem: T (12), cost, inlier share
+MAX_ALIGN_LEVELS = 8   # levels of one align_levels launch (kMaxAlignLevels)
 
 # (device index, stream, problems) -> (partials, counters) of B4
 _SCRATCH = {}
@@ -264,15 +290,167 @@ def _(img, uv, tmpl, jac, mask, P, huber_k, a_il, b_il):
     return uv.new_empty(uv.shape[:-2] + (N_OUT,))
 
 
+def _align_static(intrinsics, bounds, schedule, P, huber_k, illum_affine):
+    """The ``ops/align.Spec`` of the op's static arguments."""
+    from .. import align
+    L = len(schedule) // 2
+    return align.Spec(
+        levels=tuple(range(L)),
+        intrinsics=tuple(tuple(intrinsics[4 * i:4 * i + 4]) for i in range(L)),
+        bounds=tuple(tuple(bounds[2 * i:2 * i + 2]) for i in range(L)),
+        schedule=tuple(tuple(schedule[2 * i:2 * i + 2]) for i in range(L)),
+        patch=P, huber_k=huber_k, illum_affine=illum_affine)
+
+
+def align_levels_plain(levels, p_ref, patches, jac, mask, T_init,
+                       intrinsics, bounds, schedule, P: int, huber_k: float,
+                       illum_affine: bool) -> torch.Tensor:
+    """Plain version of ``svo::align_levels``: ``ops/align.chain`` on each
+    problem in turn, (*B,14) [T row-major, cost, inlier share]; problem b
+    exactly its call alone."""
+    from .. import align
+    s = _align_static(intrinsics, bounds, schedule, P, huber_k, illum_affine)
+    lead = T_init.shape[:-2]
+    n = T_init[..., 0, 0].numel()
+
+    def one(t):
+        return t.reshape((n,) + t.shape[len(lead):])
+
+    lv, args = [one(x) for x in levels], [one(x) for x in (
+        p_ref, patches, jac, mask, T_init)]
+    outs = []
+    for b in range(n):
+        T, stats = align.chain([x[b] for x in lv], *(a[b] for a in args), s)
+        outs.append(torch.cat([T.reshape(12), stats["align_cost"][None],
+                               stats["align_inlier_frac"][None]]))
+    out = torch.stack(outs) if outs else T_init.new_empty((0, ALIGN_OUT))
+    return out.reshape(lead + (ALIGN_OUT,))
+
+
+@torch.library.custom_op("svo::align_levels", mutates_args=())
+def align_levels_op(levels: List[torch.Tensor], p_ref: torch.Tensor,
+                    patches: torch.Tensor, jac: torch.Tensor,
+                    mask: torch.Tensor, T_init: torch.Tensor,
+                    intrinsics: List[float], bounds: List[float],
+                    schedule: List[int], P: int, huber_k: float,
+                    illum_affine: bool) -> torch.Tensor:
+    """B independent alignments: per aligned level li (coarse→fine) the
+    (*B,H_l,W_l) image ``levels[li]``, its (fx, fy, cx, cy) at
+    ``intrinsics[4li:]``, in-bounds (u, v) limits at ``bounds[2li:]`` and
+    (refresh passes, inner passes after each) at ``schedule[2li:]``; the
+    template's (*B,N,3) points, (*B,L,N,P²) patches, (*B,L,N,P²,6)
+    Jacobians and (*B,N) bool mask; (*B,3,4) T_init → (*B,14) [T, cost,
+    inlier share]. On CUDA one ``align_levels_kernel`` launch for all of
+    them."""
+    if _build.plain(*levels, p_ref, patches, jac, mask, T_init):
+        return align_levels_plain(levels, p_ref, patches, jac, mask, T_init,
+                                  intrinsics, bounds, schedule, P, huber_k,
+                                  illum_affine)
+    L = len(levels)
+    lead, N = T_init.shape[:-2], p_ref.shape[-2]
+    P2 = P * P
+    if not 0 <= L <= MAX_ALIGN_LEVELS or len(intrinsics) != 4 * L \
+            or len(bounds) != 2 * L or len(schedule) != 2 * L:
+        raise ValueError(f"align_levels: {L} levels (at most "
+                         f"{MAX_ALIGN_LEVELS}) with {len(intrinsics)} "
+                         f"intrinsics, {len(bounds)} bounds and "
+                         f"{len(schedule)} schedule entries")
+    for t, name, core in ((p_ref, "p_ref", (N, 3)),
+                          (patches, "patches", (L, N, P2)),
+                          (jac, "jac", (L, N, P2, 6)),
+                          (T_init, "T_init", (3, 4))):
+        _check_f32(t, name)
+        _check_lead(lead, t, name, core)
+    if mask.dtype != torch.bool:
+        raise TypeError(f"mask: bool required, got {mask.dtype}")
+    _check_lead(lead, mask, "mask", (N,))
+    imgs, strides, hw = [], [], []
+    for i, img in enumerate(levels):
+        _check_f32(img, f"levels[{i}]")
+        _check_lead(lead, img, f"levels[{i}]", tuple(img.shape[-2:]))
+        img_p, s_img = _build.problems(img, 2)
+        imgs.append(img_p)
+        strides.append(s_img)
+        hw += list(img.shape[-2:])
+    p_ref_p, s_p_ref = _build.problems(p_ref, 2)
+    patches_p, s_patches = _build.problems(patches, 3)
+    jac_p, s_jac = _build.problems(jac, 4)
+    if s_jac % 2 or jac_p.data_ptr() % 8:
+        raise ValueError("jac: every problem's Jacobians 8-byte aligned "
+                         "required (read as float2)")
+    mask_p, s_mask = _build.problems(mask, 1)
+    T_p, s_T = _build.problems(T_init, 2)
+    n = T_p.shape[0]
+    if n > _build.MAX_PROBLEMS:
+        raise ValueError(f"{n} problems: at most {_build.MAX_PROBLEMS}")
+    out = torch.empty((n, ALIGN_OUT), dtype=torch.float32,
+                      device=T_init.device)
+    lib = _build.load_library()
+    _build.raise_on_error(lib.svo_align_levels(
+        (ctypes.c_longlong * L)(*(x.data_ptr() for x in imgs)),
+        (ctypes.c_long * L)(*strides),
+        (ctypes.c_int * (2 * L))(*hw),
+        (ctypes.c_float * (4 * L))(*intrinsics),
+        (ctypes.c_float * (2 * L))(*bounds),
+        (ctypes.c_int * (2 * L))(*schedule), L,
+        p_ref_p.data_ptr(), s_p_ref, patches_p.data_ptr(), s_patches,
+        jac_p.data_ptr(), s_jac, mask_p.data_ptr(), s_mask, T_p.data_ptr(),
+        s_T, N, P, float(huber_k), int(illum_affine), out.data_ptr(), n,
+        lib.svo_align_threads(N, P), _build.stream(T_init.device)),
+        "align_levels")
+    LAUNCHES["align_levels"] += int(n > 0)
+    return out.reshape(lead + (ALIGN_OUT,))
+
+
+@align_levels_op.register_fake
+def _(levels, p_ref, patches, jac, mask, T_init, intrinsics, bounds,
+      schedule, P, huber_k, illum_affine):
+    return T_init.new_empty(T_init.shape[:-2] + (ALIGN_OUT,))
+
+
+def _align_vmap_rule(info, in_dims, *args):
+    """``_vmap_rule`` of ``svo::align_levels``, whose first argument is a
+    list of tensors: every batched tensor's dim to the front, the others
+    expanded (no copy), then one call of the op."""
+    def front(a, d):
+        if not isinstance(a, torch.Tensor):
+            return a
+        return (a.movedim(d, 0) if d is not None
+                else a.expand((info.batch_size,) + a.shape))
+    levels = [front(a, d) for a, d in zip(args[0], in_dims[0])]
+    rest = [front(a, d) for a, d in zip(args[1:], in_dims[1:])]
+    return align_levels_op(levels, *rest), 0
+
+
 torch.library.register_vmap(sample_patches_op, _vmap_rule(sample_patches_op))
 torch.library.register_vmap(gn_accumulate_op, _vmap_rule(gn_accumulate_op))
+torch.library.register_vmap(align_levels_op, _align_vmap_rule)
+
+
+def align_levels(levels, p_ref: torch.Tensor, patches: torch.Tensor,
+                 jac: torch.Tensor, mask: torch.Tensor, T_init: torch.Tensor,
+                 s):
+    """The whole of ``ops/align.align`` as one launch
+    (``svo::align_levels``; under ``vmap``, one launch for the batch):
+    ``levels`` the images of the aligned levels, coarse→fine, the
+    template's fields, ``s`` its ``ops/align.Spec``. Returns (T (3,4),
+    cost, inlier share)."""
+    out = align_levels_op(
+        list(levels), p_ref, patches, jac, mask, T_init,
+        [float(x) for intr in s.intrinsics for x in intr],
+        [float(x) for b in s.bounds for x in b],
+        [int(x) for sc in s.schedule for x in sc], s.patch, s.huber_k,
+        s.illum_affine)
+    return out[..., :12].unflatten(-1, (3, 4)), out[..., 12], out[..., 13]
 
 
 def gn_accumulate(img: torch.Tensor, uv: torch.Tensor, tmpl: torch.Tensor,
                   jac: torch.Tensor, mask: torch.Tensor, P: int,
                   huber_k: float, a_il: torch.Tensor, b_il: torch.Tensor):
-    """Fused refresh pass of ``ops/align.align`` (``svo::gn_accumulate``;
-    under ``vmap``, one launch for the batch).
+    """Fused refresh pass of ``ops/align.chain``, the alignment's plain
+    version (``svo::gn_accumulate``; under ``vmap``, one launch for the
+    batch). On the card the main path's alignment is one ``align_levels``
+    launch, which does this work itself.
 
     img: (H,W) level image; uv: (N,2) projected centres (level pixels);
     tmpl: (N,P²); jac: (N,P²,6); mask: (N,P²) per-pixel validity, or (N,)

@@ -314,6 +314,10 @@ def test_counter_of_reads_libcuda_and_profiler_names():
         "gn_accumulate": ("_ZN12_GLOBAL__N_120gn_accumulate_kernelILi4EEvPKf",
                           "void (anonymous namespace)::gn_accumulate_kernel"
                           "<4>(float const*)"),
+        "align_levels": ("_ZN12_GLOBAL__N_119align_levels_kernelILi4EEEvNS_9"
+                         "AlignArgsEi",
+                         "void (anonymous namespace)::align_levels_kernel<4>"
+                         "((anonymous namespace)::AlignArgs, int)"),
     }
     assert set(names) == set(graphed.KERNELS)
     for key, forms in names.items():
@@ -409,7 +413,7 @@ def test_graphed_on_the_card_online_loop_bit_for_bit(cuda_device,
 @pytest.mark.cuda
 def test_keyframe_graphs_hold_their_kernels(cuda_device):
     """K holds the insertion's B3 launches (the stereo match); K_loop adds
-    the online loop's B2, B3 and B4 at the thumbnail. Each body's kernel
+    the online loop's B2, B3 and fused alignment at the thumbnail. Each body's kernel
     nodes equal what its capture counted (capture raises otherwise), and
     settling the counters adds each body's kernel nodes times its runs."""
     lefts, rights, _ = _frames(cuda_device)
@@ -417,7 +421,7 @@ def test_keyframe_graphs_hold_their_kernels(cuda_device):
     k, kl = step.kernel_nodes["K"], step.kernel_nodes["K_loop"]
     assert k["sample_patches"] > 0 and k["halfsample"] == 0
     assert all(kl[x] > k[x]
-               for x in ("gradients", "sample_patches", "gn_accumulate"))
+               for x in ("gradients", "sample_patches", "align_levels"))
     graphed.settle()
     c0 = graphed._counts()
     for i in range(len(lefts)):
@@ -434,17 +438,20 @@ def test_keyframe_graphs_hold_their_kernels(cuda_device):
 @pytest.mark.cuda
 def test_replays_count_launches_and_repeat(cuda_device):
     """The same frame launched twice from the same state gives the same
-    result (B4's ticket counter is back at 0 after each call) and adds
+    result (no kernel keeps state between calls) and adds
     the kernel nodes of the bodies it ran, read through libcuda, each
     time."""
     lefts, rights, _ = _frames(cuda_device)
     step = graphed.make_graphed_step(CFG, cuda_device)
     nodes = step.kernel_nodes
     assert nodes["P"] == {"halfsample": 1, "gradients": 1,
-                          "sample_patches": 0, "gn_accumulate": 0}
+                          "sample_patches": 0, "gn_accumulate": 0,
+                          "align_levels": 0}
     assert step.nodes["P"]["kernel"] == 2
-    assert nodes["A_ok"]["gn_accumulate"] > 0
-    assert nodes["A_fail"]["gn_accumulate"] > 0
+    # the alignment is one node; B4 is off the main path
+    assert nodes["A_ok"]["align_levels"] == 1
+    assert nodes["A_fail"]["align_levels"] == 1
+    assert nodes["A_ok"]["gn_accumulate"] == 0
     state, _ = step(step.state, lefts[0], rights[0])
     before = _clone(state)
     results = []

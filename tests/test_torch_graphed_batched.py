@@ -240,4 +240,5 @@ def test_cuda_graphed_batched_equals_eager_and_node_counts(cuda_device):
         assert bstep.nodes[name]["kernel"] <= 1.5 * n, (name, n,
                                                         bstep.nodes[name])
     assert bstep.kernel_nodes["P"] == {"halfsample": 1, "gradients": 1,
-                                       "sample_patches": 0, "gn_accumulate": 0}
+                                       "sample_patches": 0, "gn_accumulate": 0,
+                                       "align_levels": 0}
