@@ -24,6 +24,12 @@
 // advances the frame counter that picks the ring's row. A stamp costs one
 // kernel node (about a microsecond of the chain's time).
 //
+// Stages and counters. A stage (a part of a body: the epipolar search,
+// window BA) has a slot of the table as a body has; its stamps are
+// launched inside the body's capture (svo_stamp on the capturing stream),
+// so they are kernel nodes of the body's own graph. A counter stamp copies
+// an int32 that an earlier node of the frame wrote into the frame's row.
+//
 // Plain C interface (loaded with ctypes); every entry point returns a
 // cudaError_t.
 
@@ -44,25 +50,28 @@ __global__ void set_conditionals_kernel(SetWork w) {
   if (i < w.n) cudaGraphSetConditional(w.handle[i], *w.pred[i] ? 1u : 0u);
 }
 
-// What a stamp does (engine/graphed.py: FRAME_START ... CLOCK).
+// What a stamp does (engine/graphed.py: FRAME_START ... COUNT).
 enum StampOp { FRAME_START = 0, BODY_START = 1, BODY_END = 2, FRAME_END = 3,
-               CLOCK = 4 };
+               CLOCK = 4, COUNT = 5 };
 
-// The span table of a step with n bodies, int64:
-//   runs[n] | ns[n] | frames | clock | start[n] | ring[ring][2 + 2n]
-// A ring row: the frame's start and end, then each body's nanoseconds in
+// The span table of a step with n slots (its bodies, then its stages) and
+// c counters, int64:
+//   runs[n] | ns[n] | frames | clock | start[n] | ring[ring][2 + 2n + c]
+// A ring row: the frame's start and end, then each slot's nanoseconds in
 // the frame and its start after the frame's start (0 where it did not
-// run). The row of the frame that runs is frames % ring.
+// run), then each counter's value in the frame (0 where none was written).
+// The row of the frame that runs is frames % ring.
 struct Stamp {
   long long* table;
-  int op, body, n, ring;
+  int op, body, n, ring, counts;
+  const int* src;  // COUNT: the int32 that counter `body` takes
 };
 
 __global__ void stamp_kernel(Stamp s) {
   long long now;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
   long long* t = s.table;
-  const int n = s.n, width = 2 + 2 * n;
+  const int n = s.n, width = 2 + 2 * n + s.counts;
   long long* runs = t;
   long long* ns = t + n;
   long long* frames = t + 2 * n;
@@ -87,6 +96,9 @@ __global__ void stamp_kernel(Stamp s) {
     case FRAME_END:
       row[1] = now;
       *frames += 1;
+      break;
+    case COUNT:
+      row[2 + 2 * n + s.body] = *s.src;
       break;
     default:  // CLOCK: the timer alone, for the clock's calibration
       t[2 * n + 1] = now;
@@ -149,16 +161,19 @@ extern "C" int svo_graph_add_child(void* graph, void** last, void* child) {
 
 // A stamp node (op, body; see Stamp) of the table `table` after *last.
 extern "C" int svo_graph_add_stamp(void* graph, void** last, void* table,
-                                   int op, int body, int n, int ring) {
+                                   int op, int body, int n, int ring,
+                                   int counts) {
   return add_stamp((cudaGraph_t)graph, last,
-                   Stamp{(long long*)table, op, body, n, ring});
+                   Stamp{(long long*)table, op, body, n, ring, counts,
+                         nullptr});
 }
 
-// One stamp launched on `stream` (the calibration's CLOCK).
+// One stamp launched on `stream`: the calibration's CLOCK, or, inside a
+// body's capture, a stage's entry or exit or a counter (`src`).
 extern "C" int svo_stamp(void* table, int op, int body, int n, int ring,
-                         void* stream) {
+                         int counts, const void* src, void* stream) {
   stamp_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
-      Stamp{(long long*)table, op, body, n, ring});
+      Stamp{(long long*)table, op, body, n, ring, counts, (const int*)src});
   return (int)cudaGetLastError();
 }
 
@@ -168,7 +183,8 @@ extern "C" int svo_stamp(void* table, int op, int body, int n, int ring,
 // may not (memory allocation or free, host, event).
 extern "C" int svo_graph_add_if(void* graph, void** last,
                                 unsigned long long handle, void* child,
-                                void* table, int body, int n, int ring) {
+                                void* table, int body, int n, int ring,
+                                int counts) {
   cudaGraphNodeParams p = {};
   p.type = cudaGraphNodeTypeConditional;
   p.conditional.handle = (cudaGraphConditionalHandle)handle;
@@ -182,7 +198,8 @@ extern "C" int svo_graph_add_if(void* graph, void** last,
   const cudaGraph_t inside = p.conditional.phGraph_out[0];
   void* chain = nullptr;
   int rc = add_stamp(inside, &chain,
-                     Stamp{(long long*)table, BODY_START, body, n, ring});
+                     Stamp{(long long*)table, BODY_START, body, n, ring,
+                           counts, nullptr});
   if (!rc) {
     cudaGraphNode_t inner = nullptr;
     const cudaGraphNode_t after = (cudaGraphNode_t)chain;
@@ -192,7 +209,8 @@ extern "C" int svo_graph_add_if(void* graph, void** last,
   }
   if (!rc)
     rc = add_stamp(inside, &chain,
-                   Stamp{(long long*)table, BODY_END, body, n, ring});
+                   Stamp{(long long*)table, BODY_END, body, n, ring, counts,
+                         nullptr});
   if (!rc) *last = node;
   return rc;
 }

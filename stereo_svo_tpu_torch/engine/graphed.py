@@ -139,7 +139,7 @@ NOT_IN_A_BODY = ("host", "wait_event", "event_record", "mem_alloc",
 # the frames a span table's ring keeps, one row each
 RING = 8192
 # what a stamp does (csrc/frame_graph.cu: StampOp)
-FRAME_START, BODY_START, BODY_END, FRAME_END, CLOCK = range(5)
+FRAME_START, BODY_START, BODY_END, FRAME_END, CLOCK, COUNT = range(6)
 HOST_COLUMNS = ("svo.step.start", "svo.step.end", "svo.step.launch.start",
                 "svo.step.launch.end")
 _NO_RANGE = contextlib.nullcontext()
@@ -354,7 +354,8 @@ class _FrameGraph:
 
         def stamp(op, body=0):
             check(lib.svo_graph_add_stamp(self._graph, ctypes.byref(last),
-                                          table, op, body, n, spans.ring),
+                                          table, op, body, n, spans.ring,
+                                          spans.counts),
                   f"a stamp ({op}, {body})")
 
         stamp(FRAME_START)
@@ -370,7 +371,7 @@ class _FrameGraph:
                 check(lib.svo_graph_add_if(
                     self._graph, ctypes.byref(last), handles[arg],
                     ctypes.c_void_p(graphs[arg].raw_cuda_graph()), table,
-                    spans.slot[arg], n, spans.ring),
+                    spans.slot[arg], n, spans.ring, spans.counts),
                     f"the conditional body {arg}")
             else:
                 k = len(arg)
@@ -432,7 +433,7 @@ def _capture_graphs(step) -> Tuple[float, int]:
             # would overwrite it
             for name in step.graph_names:
                 graph, _, counted = capture(
-                    lambda: step._run_body(name), pool, side)
+                    lambda: step._body(name), pool, side)
                 step.nodes[name], step.kernel_nodes[name] = scan(graph)
                 if step.kernel_nodes[name] != counted:
                     raise RuntimeError(
@@ -461,31 +462,52 @@ def _capture_graphs(step) -> Tuple[float, int]:
     return time.perf_counter() - t0, pool_bytes
 
 
+def stages_of(cfg: SvoConfig) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+    """(stages, counters) a single step of ``cfg`` keeps: the epipolar
+    search (``svo.stage.epi``, ``svo.count.epi_recovered``) where
+    ``epi_samples > 0``, window BA (``svo.stage.ba``,
+    ``svo.count.ba_keyframes``) where ``use_ba``."""
+    kept = [(stage, counter) for stage, counter, on in (
+        ("epi", "epi_recovered", cfg.epi_samples > 0),
+        ("ba", "ba_keyframes", cfg.use_ba)) if on]
+    return (tuple(g for g, _ in kept), tuple(c for _, c in kept))
+
+
 class _Spans:
     """A step's span table, its host ring, each body's kernel nodes and the
     runs already added to the launch counters. It outlives its step until
     :func:`settle` has added its last runs.
 
     The table (int64, on the step's device; its layout is
-    csrc/frame_graph.cu's): each body's runs and summed nanoseconds, the
-    frame counter, and a ring of :data:`RING` rows, the frame's row at the
-    counter modulo the ring — the frame's start and end, each body's
-    nanoseconds in it and its start after the frame's (0 where it did not
-    run). On the card the frame graph's stamp nodes write it on the
-    device's clock, ``%globaltimer``, calibrated against the host's
-    (``time.perf_counter_ns``) when the table is made; on the CPU
-    :meth:`stamp` writes it on the host's. The host ring: the start and end
-    of the step's call and of its launch of the frame (:data:`HOST_COLUMNS`),
-    a row a launch."""
+    csrc/frame_graph.cu's): a slot for each body and then each stage, with
+    its runs and summed nanoseconds, the frame counter, and a ring of
+    :data:`RING` rows, the frame's row at the counter modulo the ring — the
+    frame's start and end, each slot's nanoseconds in it and its start
+    after the frame's (0 where it did not run), then each counter's value
+    (0 where none was written). On the card the frame graph's stamp nodes
+    write it on the device's clock, ``%globaltimer``, calibrated against
+    the host's (``time.perf_counter_ns``) when the table is made, a stage's
+    and a counter's stamps being kernel nodes of its body's graph; on the
+    CPU :meth:`stamp` writes it on the host's. The host ring: the start and
+    end of the step's call and of its launch of the frame
+    (:data:`HOST_COLUMNS`), a row a launch. ``stages`` and ``counters``
+    are what ``utils/profiling.stage`` and ``count`` write to while the
+    step captures or plainly runs a body (:meth:`open`, :meth:`close`,
+    :meth:`count`)."""
 
     def __init__(self, names: Tuple[str, ...], device: torch.device,
-                 kind: str, batch: int):
-        n = len(names)
-        self.names, self.kind, self.batch = names, kind, batch
-        self.slot = {g: i for i, g in enumerate(names)}
+                 kind: str, batch: int, stages: Tuple[str, ...] = (),
+                 counters: Tuple[str, ...] = ()):
+        self.bodies, self.kind, self.batch = names, kind, batch
+        self.stages, self.counters = stages, counters
+        self.names = names + tuple(f"stage.{g}" for g in stages)  # slots
+        n = len(self.names)
+        self.counts = len(counters)
+        self.slot = {g: i for i, g in enumerate(self.names)}
         self.ring = RING
         self.head = 3 * n + 2
-        self.table = torch.zeros(self.head + self.ring * (2 + 2 * n),
+        self.width = 2 + 2 * n + self.counts
+        self.table = torch.zeros(self.head + self.ring * self.width,
                                  dtype=torch.int64, device=device)
         self.host = np.zeros((self.ring, len(HOST_COLUMNS)), np.int64)
         self.launches = 0
@@ -503,7 +525,7 @@ class _Spans:
             t = self.table.numpy()
             self._plain = (t[:n], t[n:2 * n], t[2 * n:2 * n + 1],
                            t[2 * n + 2:self.head],
-                           t[self.head:].reshape(self.ring, 2 + 2 * n))
+                           t[self.head:].reshape(self.ring, self.width))
 
     def _calibrate(self, tries: int = 5) -> None:
         """The device clock against the host's: a stamp between two host
@@ -516,15 +538,17 @@ class _Spans:
             h0 = time.perf_counter_ns()
             _build.raise_on_error(
                 lib.svo_stamp(self.table.data_ptr(), CLOCK, 0, n, self.ring,
-                              _build.stream(dev)), "stamp")
+                              self.counts, None, _build.stream(dev)),
+                "stamp")
             torch.cuda.synchronize(dev)
             h1 = time.perf_counter_ns()
             if best is None or h1 - h0 < best[0]:
                 best = (h1 - h0, int(self.table[2 * n + 1]) - (h0 + h1) // 2)
         self.calibration_ns, self.device_minus_host_ns = best
 
-    def stamp(self, op: int, body: int = 0) -> None:
-        """The plain version of a stamp node, on the host clock."""
+    def stamp(self, op: int, body: int = 0, value: int = 0) -> None:
+        """The plain version of a stamp node, on the host clock (a COUNT
+        stamp writes ``value``)."""
         now = time.perf_counter_ns()
         runs, ns, frames, start, ring = self._plain
         row = ring[frames[0] % self.ring]
@@ -539,9 +563,38 @@ class _Spans:
             ns[body] += d
             row[2 + body] = d
             row[2 + len(self.names) + body] = start[body] - row[0]
+        elif op == COUNT:
+            row[2 + 2 * len(self.names) + body] = value
         else:
             row[1] = now
             frames[0] += 1
+
+    def _inside(self, op: int, body: int,
+                value: Optional[torch.Tensor] = None) -> None:
+        """A stamp from inside a body: on the card launched on the current
+        stream (in a capture, a kernel node of the body being captured),
+        on the CPU the plain version's. A COUNT stamp writes ``value``, a
+        0-dim integer tensor."""
+        if self._plain is not None:
+            self.stamp(op, body, 0 if value is None else int(value))
+            return
+        src = None if value is None else value.to(torch.int32).reshape(())
+        _build.raise_on_error(_build.load_library().svo_stamp(
+            self.table.data_ptr(), op, body, len(self.names), self.ring,
+            self.counts, None if src is None else src.data_ptr(),
+            _build.stream(self.table.device)), "stamp")
+
+    def open(self, stage: str) -> None:
+        """The entry stamp of stage ``stage``."""
+        self._inside(BODY_START, self.slot[f"stage.{stage}"])
+
+    def close(self, stage: str) -> None:
+        """The exit stamp of stage ``stage``."""
+        self._inside(BODY_END, self.slot[f"stage.{stage}"])
+
+    def count(self, counter: str, value: torch.Tensor) -> None:
+        """The frame's value of ``counter``: a 0-dim integer tensor."""
+        self._inside(COUNT, self.counters.index(counter), value)
 
     def host_span(self, *times: int) -> None:
         """The host clock's readings of :data:`HOST_COLUMNS` for this
@@ -550,7 +603,7 @@ class _Spans:
         self.launches += 1
 
     def runs(self) -> List[int]:
-        """Each body's runs (one read of the device)."""
+        """Each slot's runs (one read of the device)."""
         if self.table is None:
             return self._final
         return self.table[:len(self.names)].tolist()
@@ -558,9 +611,10 @@ class _Spans:
     def record(self) -> dict:
         """The spans as one JSON-ready object (one read of the device): the
         step's kind and batch, the bodies, runs and nanoseconds by body,
-        the filled rows of the device ring and of the host ring, oldest
-        first, and the clocks' offsets."""
-        n = len(self.names)
+        the filled rows of the device ring (its stage and counter columns
+        too) and of the host ring, oldest first, and the clocks'
+        offsets."""
+        n, b = len(self.names), len(self.bodies)
         t = self.table.cpu().numpy()
         frames = int(t[2 * n])
 
@@ -568,16 +622,19 @@ class _Spans:
             return np.roll(ring, -(count % self.ring),
                            axis=0)[self.ring - min(count, self.ring):]
 
-        ring = t[self.head:].reshape(self.ring, 2 + 2 * n)
+        ring = t[self.head:].reshape(self.ring, self.width)
+        slots = [f"svo.body.{g}" for g in self.bodies] + [
+            f"svo.stage.{g}" for g in self.stages]
         return {
             "kind": self.kind, "batch": self.batch,
-            "bodies": list(self.names),
-            "runs": dict(zip(self.names, t[:n].tolist())),
-            "ns": dict(zip(self.names, t[n:2 * n].tolist())),
+            "bodies": list(self.bodies),
+            "runs": dict(zip(self.bodies, t[:b].tolist())),
+            "ns": dict(zip(self.bodies, t[n:n + b].tolist())),
             "frames": frames, "launches": self.launches, "ring": self.ring,
             "device_columns": ["svo.frame.start", "svo.frame.end",
-                               *(f"svo.body.{g}.ns" for g in self.names),
-                               *(f"svo.body.{g}.at" for g in self.names)],
+                               *(f"{g}.ns" for g in slots),
+                               *(f"{g}.at" for g in slots),
+                               *(f"svo.count.{c}" for c in self.counters)],
             "device_rows": filled(ring, frames).tolist(),
             "host_columns": list(HOST_COLUMNS),
             "host_rows": filled(self.host, self.launches).tolist(),
@@ -662,8 +719,11 @@ class _FrameStep:
     _preds: Tuple[str, ...] = ()
 
     def _setup(self, cfg: SvoConfig, device, state: SlamState, hw,
-               graph_names, plan, batch: Optional[int]) -> None:
-        """``batch``: the batched step's B, None for the single step."""
+               graph_names, plan, batch: Optional[int],
+               stages: Tuple[Tuple[str, ...], Tuple[str, ...]] = ((), ())
+               ) -> None:
+        """``batch``: the batched step's B, None for the single step;
+        ``stages``: the (stages, counters) its span table keeps."""
         self.cfg = cfg
         self.device = resolve(device)
         self.state: SlamState = state                       # S, live
@@ -690,7 +750,7 @@ class _FrameStep:
                             for i, b in enumerate(self._preds)}
         self._spans = _Spans(self.graph_names, self.device,
                              "single" if batch is None else "batched",
-                             batch or 1)
+                             batch or 1, *stages)
         self.graphs: Dict[str, torch.cuda.CUDAGraph] = {}
         self.nodes: Dict[str, Dict[str, int]] = {}         # scan(), by kind
         self.kernel_nodes = self._spans.kernel_nodes       # by counter
@@ -704,6 +764,15 @@ class _FrameStep:
         weakref.finalize(self, _dropped, self._spans)
 
     # --- the bodies ---
+
+    def _body(self, name: str) -> None:
+        """Run body ``name`` with the stage stamps and counters it holds
+        (``utils/profiling.stage``, ``count``) going to the span table:
+        in a capture, where they become kernel nodes of the body, and in
+        the plain version; the warm-up before the captures runs
+        ``_run_body`` alone."""
+        with profiling.stages(self._spans):
+            self._run_body(name)
 
     def _set_preds(self, **values: torch.Tensor) -> None:
         """Write 0-dim bool tensors into the predicates of the bodies
@@ -742,7 +811,7 @@ class _FrameStep:
         for op, arg in self._plan:
             if op == "run" or (op == "if" and self._pred_views[arg].item()):
                 spans.stamp(BODY_START, spans.slot[arg])
-                self._run_body(arg)
+                self._body(arg)
                 spans.stamp(BODY_END, spans.slot[arg])
         spans.stamp(FRAME_END)
 
@@ -811,7 +880,7 @@ class GraphedStep(_FrameStep):
              ("set", ("boot", "A_ok", "A_fail", "B")),
              ("if", "boot"), ("if", "A_ok"), ("if", "A_fail"),
              ("set", ("K", "K_loop")), ("if", "K"), ("if", "K_loop"),
-             ("if", "B")], None)
+             ("if", "B")], None, stages_of(cfg))
 
     def _run_body(self, name: str) -> None:
         if name == "P":
@@ -962,5 +1031,5 @@ def make_graphed_batched_step(cfg: SvoConfig, B: int, device="cuda"
 
 __all__ = ["make_graphed_step", "make_graphed_batched_step", "GraphedStep",
            "GraphedBatchedStep", "capture", "scan", "kernel_names",
-           "counter_of", "settle", "live_spans", "GRAPHS", "BATCH_GRAPHS",
-           "KERNELS", "NOT_IN_A_BODY", "CAPTURES", "RING"]
+           "counter_of", "settle", "live_spans", "stages_of", "GRAPHS",
+           "BATCH_GRAPHS", "KERNELS", "NOT_IN_A_BODY", "CAPTURES", "RING"]

@@ -50,6 +50,7 @@ from ..geometry import camera as cam_mod
 from ..geometry import se3
 from ..ops import align as align_ops
 from ..ops import depth_filter, klt as klt_ops, pyramid, solve, stereo_match
+from ..utils import profiling
 from .state import (STATUS_DEAD, STATUS_LANDMARK, STATUS_SEED, FrameOut,
                     SlamState)
 
@@ -397,12 +398,14 @@ def make_phases(cfg: SvoConfig):
             lv_e = cfg.epi_level
             lost_seed = (ok & (status == STATUS_SEED)
                          & ~(tracked & inliers) & st.klt_tmpl.mask)
-            uv_epi, epi_ok, _ = depth_filter.epipolar_search(
-                cam, cfg, T_ck, st.kf_uv, st.mu, st.sigma2,
-                st.klt_tmpl.patches[lv_e], pyr_l[lv_e], lost_seed,
-                level=lv_e)
+            with profiling.stage("epi"):
+                uv_epi, epi_ok, _ = depth_filter.epipolar_search(
+                    cam, cfg, T_ck, st.kf_uv, st.mu, st.sigma2,
+                    st.klt_tmpl.patches[lv_e], pyr_l[lv_e], lost_seed,
+                    level=lv_e)
             recovered = lost_seed & epi_ok
             n_epi = recovered.sum().to(_I32)
+            profiling.count("epi_recovered", lambda: n_epi)
             seeds = seeds | recovered
             obs_uv_df = torch.where(recovered[:, None], uv_epi, feat_uv)
             px_scale = torch.where(
@@ -469,7 +472,9 @@ def make_phases(cfg: SvoConfig):
         when the host's ``run_loop`` (:func:`loop_due`) says it is due."""
         st = keyframe.insert(cfg, st, pyr_l, gxs, gys, img_r, T_cw)
         if cfg.use_ba:
-            st = run_window_ba(cfg, st)
+            profiling.count("ba_keyframes", lambda: st.kf_valid.sum())
+            with profiling.stage("ba"):
+                st = run_window_ba(cfg, st)
         if run_loop:
             st = run_online_loop(cfg, st)
         return st

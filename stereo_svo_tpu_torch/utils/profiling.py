@@ -1,9 +1,11 @@
 """Tracing/profiling helpers — port of ``stereo_svo_tpu/utils/profiling.py``.
 
 ``trace()`` wraps ``torch.profiler`` and writes a Chrome trace (open it in
-Perfetto or chrome://tracing), with the frame and body spans of the
+Perfetto or chrome://tracing), with the frame, body and stage spans of the
 graphed steps alive in its block; ``write_spans`` exports a step's spans
-(``engine/graphed.py``) as one JSON line; ``time_fn`` is the
+(``engine/graphed.py``) as one JSON line; ``stage`` and ``count`` mark a
+stage of a body and a per-frame counter for the graphed step that captures
+or runs the body (no-ops anywhere else); ``time_fn`` is the
 micro-benchmark harness: CUDA events when the arguments live on the card,
 the host clock on the CPU.
 
@@ -14,8 +16,9 @@ the process truncates at its first write: the step's ``kind`` ("single",
 "batched") and ``batch``, its ``bodies``, ``runs`` and ``ns`` (summed
 device nanoseconds) by body, ``frames`` and ``launches``, the filled rows
 of the device ring (``device_columns``: a frame's start and end, each
-body's nanoseconds in it and its start after the frame's, 0 where it did
-not run) and of the host ring (``host_columns``: the step's call and its
+body's and each stage's nanoseconds in it and its start after the
+frame's, 0 where it did not run, then each counter's value) and of the
+host ring (``host_columns``: the step's call and its
 launch of the frame graph, start and end), both oldest first, row k of one
 the frame of row k of the other, and ``clock``: device times are
 ``%globaltimer`` nanoseconds, host times ``time.perf_counter_ns``; a
@@ -40,6 +43,46 @@ import torch
 SPANS_DIR = Path(__file__).resolve().parents[2] / "build" / "svo_trace"
 _written: set = set()      # span files this process has written to
 _warned: List[str] = []
+# the span table that stage() and count() write: set by a graphed step
+# (engine/graphed.py) while it captures a body, or runs one in its plain
+# version; None anywhere else
+_stages = [None]
+
+
+@contextlib.contextmanager
+def stages(spans):
+    """``stage()`` and ``count()`` inside the block go to ``spans`` (an
+    object with ``open(name)``, ``close(name)`` and ``count(name,
+    value)``, the stages and counters it keeps in ``stages`` and
+    ``counters``), or nowhere with None."""
+    before, _stages[0] = _stages[0], spans
+    try:
+        yield
+    finally:
+        _stages[0] = before
+
+
+@contextlib.contextmanager
+def stage(name: str):
+    """A stage of a body, ``svo.stage.<name>``: an entry and an exit stamp
+    around the block where a graphed step that keeps the stage captures or
+    runs the body; nothing elsewhere."""
+    spans = _stages[0]
+    if spans is None or name not in spans.stages:
+        yield
+        return
+    spans.open(name)
+    yield
+    spans.close(name)
+
+
+def count(name: str, value: Callable[[], torch.Tensor]) -> None:
+    """The frame's value of counter ``svo.count.<name>``, ``value()`` (a
+    0-dim integer tensor, computed only where the counter is kept), where
+    a graphed step that keeps the counter captures or runs the body."""
+    spans = _stages[0]
+    if spans is not None and name in spans.counters:
+        spans.count(name, value())
 
 
 def spans_path() -> Path:
@@ -69,12 +112,13 @@ def span_events(record: dict, start_ns: int, end_ns: int, base_ns: int,
                 pid: int, tid: int) -> List[dict]:
     """Chrome trace events of a span record's device frames that start
     between ``start_ns`` and ``end_ns`` (host clock): one ``svo.frame``
-    span a frame and one ``svo.body.<name>`` span a body that ran, on the
-    profiler's clock (µs after ``base_ns`` of the wall clock)."""
+    span a frame and one ``svo.body.<name>`` or ``svo.stage.<name>`` span
+    a body or stage that ran, on the profiler's clock (µs after ``base_ns``
+    of the wall clock)."""
     clock = record["clock"]
     shift = clock["realtime_minus_host_ns"] - clock["device_minus_host_ns"]
     cols = record["device_columns"]
-    bodies = record["bodies"]
+    spans = [c[:-3] for c in cols if c.endswith(".ns")]
     first = record["frames"] - len(record["device_rows"])
     out = []
     for k, row in enumerate(record["device_rows"]):
@@ -86,13 +130,13 @@ def span_events(record: dict, start_ns: int, end_ns: int, base_ns: int,
         out.append({"ph": "X", "cat": "svo_span", "name": "svo.frame",
                     "pid": pid, "tid": tid, "ts": at,
                     "dur": (row[1] - row[0]) / 1e3, "args": args})
-        for g in bodies:
-            ns = row[cols.index(f"svo.body.{g}.ns")]
+        for g in spans:
+            ns = row[cols.index(f"{g}.ns")]
             if ns:
                 out.append({
-                    "ph": "X", "cat": "svo_span", "name": f"svo.body.{g}",
+                    "ph": "X", "cat": "svo_span", "name": g,
                     "pid": pid, "tid": tid, "args": args, "dur": ns / 1e3,
-                    "ts": at + row[cols.index(f"svo.body.{g}.at")] / 1e3})
+                    "ts": at + row[cols.index(f"{g}.at")] / 1e3})
     return out
 
 

@@ -12,12 +12,20 @@ its length; the record round-trips through JSON with every field; and
 ``svo.step`` / ``svo.step.launch`` are profiler ranges only while a
 profiler is on.
 
+Stages and counters: with the epipolar search on, every track body holds
+an ``svo.stage.epi`` span and every keyframe body an ``svo.stage.ba``
+span, each inside its body's, and the frame's row holds the step's
+``n_epi_recovered`` and the keyframes window BA ran over; a configuration
+without the stage has neither its columns nor its stamps, and the batched
+step has none.
+
 The ``cuda`` tests (skipped without a card) check the same on the card,
 and that each exported frame span starts within 100 µs of the profiler's
 record of that frame's B1 kernel: ``python -m pytest --noconftest -m cuda
 tests/test_torch_spans.py``.
 """
 
+import dataclasses
 import json
 import os
 
@@ -217,6 +225,120 @@ def test_profiler_ranges_only_under_a_profiler(monkeypatch, tmp_path):
                 <= launch["ts"] + launch["dur"] + slack)
 
 
+# --- stages and counters ---
+
+EPI_CFG = dataclasses.replace(CFG, epi_samples=16)
+STAGE_COLUMNS = ("svo.stage.epi.ns", "svo.stage.epi.at", "svo.stage.ba.ns",
+                 "svo.stage.ba.at", "svo.count.epi_recovered",
+                 "svo.count.ba_keyframes")
+
+
+def _staged(device):
+    """SINGLE_FRAMES frames of EPI_CFG's graphed step: per frame the
+    bodies that ran and the FrameOut's ``n_epi_recovered`` and
+    ``kf_inserted``; the step's record."""
+    lefts, rights, _ = _frames(device)
+    step = graphed.make_graphed_step(EPI_CFG, device)
+    ran, before, epi, kf = [], step.replays, [], []
+    for i in range(SINGLE_FRAMES):
+        _, out = step(step.state, lefts[i], rights[i])
+        now = step.replays
+        ran.append({g for g in now if now[g] > before[g]})
+        before = now
+        epi.append(int(out.n_epi_recovered))
+        kf.append(bool(out.kf_inserted))
+    return step, ran, epi, kf, step.spans()
+
+
+def _check_stages(ran, epi, kf, record):
+    """Each stage runs exactly in the frames whose body holds it and lies
+    inside that body's span; the counters are the FrameOut's recoveries
+    and the window's keyframes, in the frames they belong to."""
+    col = {c: _column(record, c) for c in record["device_columns"]}
+    assert all(c in col for c in STAGE_COLUMNS)
+    window = 0
+    for row, bodies, n_epi, is_kf in zip(record["device_rows"], ran, epi,
+                                         kf):
+        window = min(window + is_kf, EPI_CFG.max_keyframes)
+        for stage, holders in (("epi", ("A_ok", "A_fail")),
+                               ("ba", ("K", "K_loop"))):
+            ns = row[col[f"svo.stage.{stage}.ns"]]
+            at = row[col[f"svo.stage.{stage}.at"]]
+            body = [g for g in holders if g in bodies]
+            assert (ns > 0) == bool(body), (stage, bodies, ns)
+            if body:
+                b_ns = row[col[f"svo.body.{body[0]}.ns"]]
+                b_at = row[col[f"svo.body.{body[0]}.at"]]
+                assert b_at <= at and at + ns <= b_at + b_ns
+        tracked = bool({"A_ok", "A_fail"} & bodies)
+        assert row[col["svo.count.epi_recovered"]] == (n_epi if tracked
+                                                       else 0)
+        ran_ba = bool({"K", "K_loop"} & bodies)
+        assert row[col["svo.count.ba_keyframes"]] == (window if ran_ba
+                                                      else 0)
+    # the frames hold every branch, and the search recovered seeds
+    assert ran[0] == {"P", "flags", "boot"} and any(kf[1:])
+    assert {"A_ok", "A_fail"} <= set().union(*ran) and sum(epi) > 0
+
+
+def test_stage_spans_and_counters_fill_on_the_cpu():
+    _, ran, epi, kf, record = _staged("cpu")
+    _check_stages(ran, epi, kf, record)
+    _check_nesting(record)
+
+
+@pytest.mark.parametrize("kw, kept", [
+    ({}, ("svo.stage.ba.ns", "svo.stage.ba.at", "svo.count.ba_keyframes")),
+    ({"use_ba": False}, ()),
+    ({"epi_samples": 16, "use_ba": False},
+     ("svo.stage.epi.ns", "svo.stage.epi.at", "svo.count.epi_recovered")),
+], ids=["no_epi", "neither", "no_ba"])
+def test_a_stage_the_configuration_does_not_run_has_no_columns(kw, kept):
+    """Without the epipolar search (``epi_samples=0``, the EuRoC
+    configuration) no epi column, without window BA no BA column; the
+    batched step keeps none."""
+    cfg = dataclasses.replace(CFG, **kw)
+    lefts, rights, _ = _frames()
+    step = graphed.make_graphed_step(cfg, "cpu")
+    for i in range(3):
+        step(step.state, lefts[i], rights[i])
+    cols = step.spans()["device_columns"]
+    assert tuple(c for c in cols if c in STAGE_COLUMNS) == kept
+    assert len(step.spans()["device_rows"][0]) == len(cols)
+    bstep = graphed.make_graphed_batched_step(cfg, 2, "cpu")
+    assert not any(c.startswith(("svo.stage.", "svo.count."))
+                   for c in bstep.spans()["device_columns"])
+
+
+def test_stages_stamp_nothing_outside_a_graphed_step():
+    """The eager step (the plain version the tests hold the graphed one
+    to) runs the same phases with no span table: stage() and count() do
+    nothing there."""
+    from stereo_svo_tpu_torch.engine import step as step_mod
+    from stereo_svo_tpu_torch.engine.state import init_state
+    calls = []
+
+    class Spy:
+        stages, counters = ("epi", "ba"), ("epi_recovered", "ba_keyframes")
+
+        def open(self, name):
+            calls.append(name)
+
+        close = open
+
+        def count(self, name, value):
+            calls.append(name)
+    lefts, rights, _ = _frames()
+    eager = step_mod.make_step(EPI_CFG)
+    st, flags = init_state(EPI_CFG, "cpu"), None
+    for i in range(3):
+        st, _, flags = eager(st, lefts[i], rights[i], flags)
+    assert calls == []
+    with profiling.stages(Spy()):
+        st, _, flags = eager(st, lefts[3], rights[3], flags)
+    assert calls == ["epi", "epi", "epi_recovered"]
+
+
 # --- on the card ---
 
 @pytest.fixture
@@ -261,3 +383,13 @@ def test_cuda_frame_spans_meet_the_profilers_b1(cuda_device, tmp_path):
     assert len(frames) == 6 and len(b1) >= 4
     gaps = [min(abs(t - f["ts"]) for f in frames) for t in b1]
     assert max(gaps) < 100.0, gaps
+
+
+@pytest.mark.cuda
+def test_cuda_stage_spans_and_counters(cuda_device):
+    """On the card: the stage stamps and counters, kernel nodes of the
+    track and keyframe bodies' own graphs, fill the same columns as the
+    plain version does."""
+    step, ran, epi, kf, record = _staged(cuda_device)
+    _check_stages(ran, epi, kf, record)
+    _check_nesting(record)
