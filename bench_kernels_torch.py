@@ -40,6 +40,12 @@ replaced, ``ops/align.align_plain``, as its own graph on the same
 arguments) and ``problems8_graphed_ms`` (the kernel over 8 initial poses
 in one launch, ``vmap``).
 
+``pose_refine_ms`` on the card (``refine_pose_kernel``, one launch) adds
+``chain_graphed_ms`` and ``chain_kernel_nodes`` (the chain of ops that the
+kernel replaced, ``frontend/pose_refine.refine_plain``, as its own graph on
+the same arguments) and ``problems8_graphed_ms`` (the kernel over 8
+initial poses in one launch, ``vmap``).
+
 ``full_step_ms``: the eager step on the tracked frame, and the graphed
 step's frame graph replayed on it (its kernel nodes: the bodies a tracked
 frame runs, P, flags, A_ok and B). ``step_nonkf_ms`` (the median of the
@@ -244,6 +250,36 @@ def align_extra(args, stream) -> dict:
             "problems8_align_levels_nodes": b_kernels["align_levels"]}
 
 
+def refine_extra(call, stream) -> dict:
+    """The ``pose_refine_ms`` row's comparisons on the card, from the
+    recorded ``call`` (function, arguments, keyword arguments): the chain
+    of ops that ``refine_pose_kernel`` replaced
+    (``frontend/pose_refine.refine_plain``) as its own graph on the same
+    arguments, and the kernel over 8 problems (8 initial poses around the
+    frame's, one launch)."""
+    import torch
+    from stereo_svo_tpu_torch.frontend import pose_refine
+    from stereo_svo_tpu_torch.geometry import se3
+
+    fn, (cam, cfg, T_cw, *rest), kwargs = call
+    chain_ms, kinds, _ = graphed_ms(
+        lambda T: pose_refine.refine_plain(cam, cfg, T, *rest, **kwargs),
+        (T_cw,), stream)
+    gen = torch.Generator().manual_seed(0)
+    xi = (0.004 * torch.randn(8, 6, generator=gen)).to(T_cw.device)
+    Ts = torch.stack([se3.compose(se3.exp(x), T_cw) for x in xi])
+
+    def batch(Ts):
+        return torch.func.vmap(
+            lambda T: fn(cam, cfg, T, *rest, **kwargs))(Ts)
+    b_ms, b_kinds, b_kernels = graphed_ms(batch, (Ts,), stream)
+    return {"chain_graphed_ms": chain_ms,
+            "chain_kernel_nodes": kinds["kernel"],
+            "problems8_graphed_ms": b_ms,
+            "problems8_kernel_nodes": b_kinds["kernel"],
+            "problems8_refine_pose_nodes": b_kernels["refine_pose"]}
+
+
 def step_graphed_ms(step, state, left, right,
                     replays: int = GRAPH_REPLAYS) -> float:
     """The graphed step's frame graph on one frame from ``state``: median
@@ -338,8 +374,8 @@ def stage_table(cfg, lefts, rights, at: int = AT, device="cuda",
     if t_track is None or t_kf is None:
         raise ValueError(f"no tracked or no keyframe frame from frame {at} "
                          f"of {T} (keyframes {np.nonzero(kf)[0].tolist()})")
-    rows = rows_of(frame_inputs(cfg, step, lefts, rights, t_track),
-                   frame_inputs(cfg, step, lefts, rights, t_kf))
+    calls_track = frame_inputs(cfg, step, lefts, rights, t_track)
+    rows = rows_of(calls_track, frame_inputs(cfg, step, lefts, rights, t_kf))
     stream = torch.cuda.Stream(device) if on_card else None
     table = {}
     for name in (r for r in ROWS if r in rows):
@@ -361,6 +397,8 @@ def stage_table(cfg, lefts, rights, at: int = AT, device="cuda",
             row["kernel_nodes"] = kinds["kernel"]
             if name == "align_ms":
                 row.update(align_extra(args, stream))
+            if name == "pose_refine_ms":
+                row.update(refine_extra(calls_track[name], stream))
         table[name] = row
     steady = ms[1:]
     step_nonkf = statistics.median(

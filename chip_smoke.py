@@ -407,12 +407,14 @@ STAGE_ROWS = ("pyramid_ms", "fast_score_l0_ms", "detector_ms", "align_ms",
               "kf_insert_ms", "window_ba_ms", "full_step_ms", "reloc_ms",
               "stereo_refresh_ms", "rebuild_template_ms")
 STAGE_B_NODES = {"align_ms": ("align_levels",),
+                 "pose_refine_ms": ("refine_pose",),
                  "align_template_ms": ("sample_patches",),
                  "klt_ms": ("sample_patches",),
                  "klt_template_ms": ("sample_patches",),
                  "rebuild_template_ms": ("sample_patches",),
                  "full_step_ms": ("halfsample", "gradients",
-                                  "sample_patches", "align_levels")}
+                                  "sample_patches", "align_levels",
+                                  "refine_pose")}
 STAGE_ACCOUNTING = ("per_op_sum_ms", "step_nonkf_ms",
                     "intra_frame_residual_ms", "kf_phase_ms", "kf_rate",
                     "model_frame_ms", "measured_frame_ms", "unaccounted_ms")
@@ -444,12 +446,16 @@ TPU_KERNELS = {                            # pl.pallas_call sites replaced
     # gn_accumulate's accumulation
     "align_levels": "none (fuses stereo_svo_tpu/ops/align.py:align with "
                     "ops/pallas/align_kernel.py:217)",
+    # no Pallas kernel: the jnp chain of frontend/pose_refine.py:refine
+    "refine_pose": "none (fuses stereo_svo_tpu/frontend/pose_refine.py:"
+                   "refine)",
 }
 SOURCES = {"halfsample": "stereo_svo_tpu_torch/csrc/pyramid.cu",
            "gradients": "stereo_svo_tpu_torch/csrc/pyramid.cu",
            "sample_patches": "stereo_svo_tpu_torch/csrc/align.cu",
            "gn_accumulate": "stereo_svo_tpu_torch/csrc/align.cu",
-           "align_levels": "stereo_svo_tpu_torch/csrc/align.cu"}
+           "align_levels": "stereo_svo_tpu_torch/csrc/align.cu",
+           "refine_pose": "stereo_svo_tpu_torch/csrc/pose_refine.cu"}
 # the CUDA functions each wrapper launches (as torch.profiler names them);
 # gn_partial_kernel/gn_final_kernel are the two-launch B4 of earlier trees,
 # which compare_kernels.py times
@@ -462,10 +468,12 @@ KERNEL_FUNCTIONS = {"halfsample": ("pyramid_levels_kernel",
                     "sample_patches": ("sample_patch_kernel",),
                     "gn_accumulate": ("gn_accumulate_kernel",
                                       "gn_partial_kernel", "gn_final_kernel"),
-                    "align_levels": ("align_levels_kernel",)}
+                    "align_levels": ("align_levels_kernel",),
+                    "refine_pose": ("refine_pose_kernel",)}
 # the kernels the paths launch: B4 is off them since the alignment is one
 # align_levels launch (B4 keeps its phase-2 rows)
-PATH_KERNELS = ("halfsample", "gradients", "sample_patches", "align_levels")
+PATH_KERNELS = ("halfsample", "gradients", "sample_patches", "align_levels",
+                "refine_pose")
 # align_levels against its plain version (the chain of ops, B3 and B4 on
 # the card): the largest error within ALIGN_TOL_ABS (the pose's entries) or
 # within ALIGN_TOL_REL of each output's largest entry (the cost)
@@ -481,6 +489,7 @@ LIBRARY_CALLS = {
                       "timed region (compared at interior centres)",
     "gn_accumulate": None,
     "align_levels": None,
+    "refine_pose": None,
 }
 NO_LIBRARY_CALL = ("no single PyTorch call computes the sample, the Huber "
                    "weight and the normal equations together")
@@ -1147,6 +1156,7 @@ def check_kernels(device, frame, kitti_frame, thumb):
                   f"refresh pass", feature_mask=t_mask8)
 
     align_rows(record, device, gen, img, kitti, thumb, edge)
+    refine_rows(record, device, gen)
     return rows
 
 
@@ -1285,6 +1295,132 @@ def align_rows(record, device, gen, img, kitti, thumb, edge):
                      "8 sequences, tracking")
     batch_align_case(*th, cam_t, cfg_t, LOOP_EDGES, "phase7",
                      f"{LOOP_EDGES} edges, loop edge", extra=edge)
+
+
+def refine_bytes_flops(N: int, chunks: int, inner: int) -> tuple:
+    """The least bytes and the float32 operations of one pose refinement
+    of N features: the points, observations, sigmas, disparities, masks and
+    the two poses read once, the pose, RMS error, count and inlier mask
+    written once; per feature ~60 operations a pass for the residual and
+    its weights, a refresh pass ~150 more for the Jacobians and the 27
+    sums, an inner pass ~30 for g."""
+    nbytes = 4.0 * (N * 8 + 24 + 14) + 3 * N
+    passes = chunks * (1 + inner) + 1
+    flops = N * (60.0 * passes + chunks * 150.0 + chunks * inner * 30.0)
+    return nbytes, flops
+
+
+def refine_rows(record, device, gen):
+    """Phase 2's rows of the fused pose refinement (refine_pose_kernel):
+    the whole of frontend/pose_refine.refine in one launch against its
+    chain of ops (refine_plain), at each path's N and intrinsics: N points
+    2-20 m in front of the camera, seen from a moved pose with 0.3-px noise,
+    1 in 20 a 15-px outlier, sigmas 1 or 2, disparities with 0.2-px noise
+    on 4 in 5 of them, a motion prior near the true pose; ``record`` is
+    check_kernels' recorder."""
+    import torch
+    from stereo_svo_tpu_torch.config import (SvoConfig, kitti_config,
+                                             stress_config)
+    from stereo_svo_tpu_torch.frontend import pose_refine
+    from stereo_svo_tpu_torch.geometry import camera, se3
+    from stereo_svo_tpu_torch.ops.kernels import _build
+    from stereo_svo_tpu_torch.ops.kernels import refine_kernel as rk
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen).to(device)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(device)
+
+    def refine_problem(cfg, N):
+        cam = cfg.camera
+        margin = 24.0
+        uv = rand(N, 2) * torch.tensor(
+            [cam.width - 2 * margin, cam.height - 2 * margin],
+            device=device) + margin
+        X_w = camera.backproject(cam, uv, 2.0 + 18.0 * rand(N))
+        T_true = se3.exp(torch.tensor([0.02, -0.01, 0.03, 0.004, -0.003,
+                                       0.002], device=device))
+        x_c = se3.transform(T_true, X_w)
+        uv_obs = camera.project(cam, x_c)[0] + 0.3 * randn(N, 2)
+        uv_obs = uv_obs + 15.0 * (rand(N, 1) < 0.05)
+        mask = rand(N) < 0.95
+        sigma = torch.exp2((rand(N) < 0.5).float())
+        disp = (cam.fx * cam.baseline / torch.clamp(x_c[:, 2], min=0.2)
+                + 0.2 * randn(N))
+        dmask = mask & (rand(N) > 0.2)
+        T_prior = se3.compose(se3.exp(0.002 * randn(6)), T_true)
+        T_init = se3.compose(se3.exp(0.01 * randn(6)), T_true)
+        kw = dict(obs_sigma=sigma, T_prior=T_prior, disp_obs=disp,
+                  disp_mask=dmask, obs_sigma_d=sigma)
+        return cam, cfg, (T_init, X_w, uv_obs, mask), kw
+
+    def flat(out):
+        T, inl, st = out
+        return T, st["refine_rms_px"], st["refine_inliers"], inl
+
+    def extra_of(cfg, N, kernel, plain, use, extra):
+        chunks, inner = rk._static(cfg.camera, cfg)[2]
+        return {"use": use, "passes": chunks * (1 + inner) + 1,
+                "threads": _build.load_library().svo_refine_threads(N),
+                "graphed_us": graphed_us(kernel),
+                "chain_graphed_us": graphed_us(plain, 20),
+                "bound_note": "latency: the passes depend on each other",
+                **(extra or {})}
+
+    def refine_case(prob, path, use):
+        cam, cfg, args, kw = prob
+        N = args[1].shape[0]
+
+        def kernel():
+            return flat(rk.refine_pose(cam, cfg, *args, **kw))
+
+        def plain():
+            return flat(pose_refine.refine_plain(cam, cfg, *args, **kw))
+        first, again = kernel(), kernel()
+        require(all(torch.equal(a, b) for a, b in zip(first, again)),
+                f"refine_pose {use}: not bit-reproducible")
+        nbytes, flops = refine_bytes_flops(N, *rk._static(cam, cfg)[2])
+        record("refine_pose", kernel, plain, ALIGN_TOL_ABS, ALIGN_TOL_REL,
+               [N], path, nbytes, flops, None, extra_of(
+                   cfg, N, kernel, plain, use, dict(bit_reproducible=True)))
+
+    def batch_refine_case(prob, n, path, use):
+        """n problems from n initial poses, the rest shared (expanded, as a
+        vmap leaves it)."""
+        cam, cfg, args, kw = prob
+        N = args[1].shape[0]
+        Ts = torch.stack([se3.compose(se3.exp(0.01 * randn(6)), args[0])
+                          for _ in range(n)])
+
+        def kernel():
+            return torch.func.vmap(lambda T: flat(rk.refine_pose(
+                cam, cfg, T, *args[1:], **kw)))(Ts)
+
+        def plain():
+            return torch.func.vmap(lambda T: flat(pose_refine.refine_plain(
+                cam, cfg, T, *args[1:], **kw)))(Ts)
+        out = kernel()
+        for b in range(n):
+            one = flat(rk.refine_pose(cam, cfg, Ts[b], *args[1:], **kw))
+            require(all(torch.equal(o[b], y) for o, y in zip(out, one)),
+                    f"refine_pose {use}: problem {b} differs from its "
+                    f"one-problem launch")
+        nbytes, flops = refine_bytes_flops(N, *rk._static(cam, cfg)[2])
+        record("refine_pose", kernel, plain, ALIGN_TOL_ABS, ALIGN_TOL_REL,
+               [n, N], path, n * nbytes, n * flops, None, extra_of(
+                   cfg, N, kernel, plain, use, dict(
+                       problems=n, each_problem_bit_equal=True)))
+
+    euroc_cfg, kitti_cfg, stress_cfg = (SvoConfig(), kitti_config(),
+                                        stress_config())
+    eu = refine_problem(euroc_cfg, euroc_cfg.max_features)
+    refine_case(eu, "phase3", "tracking")
+    refine_case(refine_problem(kitti_cfg, kitti_cfg.max_features), "phase4",
+                "KITTI tracking")
+    refine_case(refine_problem(stress_cfg, stress_cfg.max_features),
+                "phase5", "stress tracking")
+    batch_refine_case(eu, BATCH, "phase8", "8 sequences, tracking")
 
 
 def count_syncs(fn):
@@ -2075,7 +2211,8 @@ def global_map_run(cfg, states, counters):
             ba_args, ba_kwargs = ba_calls[-1]["args"], ba_calls[-1]["kwargs"]
         repeats = bool(torch.equal(again.kf_T_wk, refined.kf_T_wk)
                        and torch.equal(again.X, refined.X))
-        # the map is built from stored thumbnails: no pyramid, so no B1
+        # the map is built from stored thumbnails: no pyramid, so no B1,
+        # and from measured edges: no pose refinement
         launches = read_counters(counters, "by the global map",
                                  needs=("gradients", "sample_patches",
                                         "align_levels"))
@@ -2213,7 +2350,8 @@ def profile_frames(key, make, cfg, lefts, rights, counters, kinds) -> dict:
                 + sum(n * (nodes[g]["kernel"] + nodes[g]["memcpy"]
                            + nodes[g]["memset"] + 2 * (g in ifs))
                       for g, n in prof["body_runs"].items()))
-        # the bootstrap aligns nothing: no align_levels
+        # the bootstrap aligns and refines nothing: no align_levels, no
+        # refine_pose
         prof.update(frame=t, counted=read_counters(
             counters, f"on the {key} frame {t}", needs=PATH_KERNELS if t
             else ("halfsample", "gradients", "sample_patches")))
@@ -3028,6 +3166,7 @@ def check_kernel_calls(calls) -> dict:
     import torch
     from stereo_svo_tpu_torch.ops.kernels import align_kernel as ak
     from stereo_svo_tpu_torch.ops.kernels import pyramid_kernel as pk
+    from stereo_svo_tpu_torch.ops.kernels import refine_kernel as rk
 
     rows = {}
 
@@ -3080,12 +3219,24 @@ def check_kernel_calls(calls) -> dict:
             # sums in another order than the chain's, judged relative
             note("align_levels", shape, out, ak.align_levels_plain(*args),
                  tol_rel=ALIGN_TOL_REL)
-    # on the CPU the alignment is the chain (B3 and B4); on the card one
-    # align_levels launch
+        elif op == "svo::refine_pose":
+            # the pose and RMS error: float32 sums in another order than
+            # the chain's, judged relative; the inliers and their count
+            # exact
+            ref = rk.refine_pose_plain(*args)
+            require(torch.equal(out[1], ref[1]) and torch.equal(out[2],
+                                                                ref[2]),
+                    f"refine_pose {shape}: inliers differ from the plain "
+                    f"version")
+            note("refine_pose", shape, out[0], ref[0], tol_rel=ALIGN_TOL_REL)
+    # on the CPU the alignment is the chain (B3 and B4) and the refinement
+    # its chain of ops; on the card one align_levels and one refine_pose
+    # launch
     cpu = any(a.device.type == "cpu" for _, args, _ in calls for a in args
               if isinstance(a, torch.Tensor))
     missing = [k for k in KERNEL_FUNCTIONS if k not in rows
-               and k != ("align_levels" if cpu else "gn_accumulate")]
+               and k not in (("align_levels", "refine_pose") if cpu
+                             else ("gn_accumulate",))]
     require(not missing, f"no recorded call of {missing}")
     return rows
 
@@ -3118,12 +3269,13 @@ def sharded_rank(rank: int, n: int, cfg, n_seqs: int, frames: int,
     from stereo_svo_tpu_torch.io import synthetic
     from stereo_svo_tpu_torch.ops.kernels import align_kernel as ak
     from stereo_svo_tpu_torch.ops.kernels import pyramid_kernel as pk
+    from stereo_svo_tpu_torch.ops.kernels import refine_kernel as rk
     from stereo_svo_tpu_torch.parallel import mapping
     from stereo_svo_tpu_torch.parallel import mesh as mesh_mod
 
     ready_s = time.time() - t_spawn
     device = mesh_mod.rank_device()
-    counters = (pk.LAUNCHES, ak.LAUNCHES)
+    counters = (pk.LAUNCHES, ak.LAUNCHES, rk.LAUNCHES)
 
     def sync():
         if device.type == "cuda":
@@ -3263,11 +3415,13 @@ def multi_rank_run(cfg, ref8: dict, ref11: dict, smi: str) -> dict:
                 f"phase 17: rank {r['rank']} ran on {r['backend']}, "
                 f"{r['device']}")
         read = {"batched": r["launches_batched"], "map": r["launches_map"]}
-        # the map is built from stored thumbnails: no pyramid, so no B1
+        # the map is built from stored thumbnails: no pyramid, so no B1,
+        # and from measured edges: no pose refinement
         missing = [k for k, v in read["batched"].items()
                    if v < 1 and k in PATH_KERNELS] + [
             k for k, v in read["map"].items()
-            if v < 1 and k in PATH_KERNELS and k != "halfsample"]
+            if v < 1 and k in PATH_KERNELS
+            and k not in ("halfsample", "refine_pose")]
         require(not missing, f"phase 17: rank {r['rank']} never launched "
                              f"{missing}")
     traj = by_sequence(ranks, "T_wc", BATCH)
@@ -3366,13 +3520,14 @@ def main() -> int:
         from stereo_svo_tpu_torch.ops.kernels import _build
         from stereo_svo_tpu_torch.ops.kernels import align_kernel as ak
         from stereo_svo_tpu_torch.ops.kernels import pyramid_kernel as pk
+        from stereo_svo_tpu_torch.ops.kernels import refine_kernel as rk
     except ImportError as e:
         print(f"FAIL: the port is not importable ({e}); run chip_smoke.py "
               "from the root of a checkout", file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
-    counters = (pk.LAUNCHES, ak.LAUNCHES)
+    counters = (pk.LAUNCHES, ak.LAUNCHES, rk.LAUNCHES)
     detail = {}
     t_start = time.perf_counter()
     seconds, clock = {}, [t_start, "setup"]
@@ -3834,6 +3989,7 @@ def child_main(task: dict) -> int:
     from stereo_svo_tpu_torch.io import synthetic
     from stereo_svo_tpu_torch.ops.kernels import align_kernel as ak
     from stereo_svo_tpu_torch.ops.kernels import pyramid_kernel as pk
+    from stereo_svo_tpu_torch.ops.kernels import refine_kernel as rk
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     cfg = SvoConfig()
@@ -3848,7 +4004,8 @@ def child_main(task: dict) -> int:
             cfg.camera, N_FRAMES, DT, kind="arc", seed=SEED, device=device)
     if task["task"] == "profile_frames":
         out = profile_frames("graphed", StereoSvo, cfg, lefts, rights,
-                             (pk.LAUNCHES, ak.LAUNCHES), task["kinds"])
+                             (pk.LAUNCHES, ak.LAUNCHES, rk.LAUNCHES),
+                             task["kinds"])
     else:
         out = steady_window(cfg, lefts, rights, task["batch"])
     print(json.dumps(out))

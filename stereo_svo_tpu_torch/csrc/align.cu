@@ -71,6 +71,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "se3_solve.cuh"   // se3_exp, se3_compose_into, solve6_lanes
+
 namespace {
 
 constexpr int kAcc = 30;          // 21 unique H entries, 6 g, cost, n_eff, n_inl
@@ -522,10 +524,6 @@ struct AlignArgs {
   float* out;                    // (B, kAlignOut)
 };
 
-__device__ __forceinline__ float clamp_lo_nan(float x, float lo) {
-  return x < lo ? lo : x;   // torch.clamp(x, min=lo): a NaN stays NaN
-}
-
 // Shared state of one block of a problem's alignment.
 struct AlignShared {
   float part[kAlignMaxWarps * 30];   // cluster_sum's warp sums
@@ -575,61 +573,6 @@ __device__ __forceinline__ void cluster_sum(const float (&v)[C],
   }
   __syncthreads();
   buf ^= 1;
-}
-
-// se3.exp: twist (v, w) -> E (3x4, row-major), Rodrigues with the same
-// Taylor branches.
-__device__ void se3_exp(const float* xi, float* E) {
-  const float w0 = xi[3], w1 = xi[4], w2 = xi[5];
-  const float th2 = (w0 * w0 + w1 * w1) + w2 * w2;
-  const float th = sqrtf(th2 + 1e-16f);
-  float A, B, C;   // the small-angle branch skips the trigonometry
-  if (th2 < 1e-8f) {
-    A = 1.0f - th2 / 6.0f;
-    B = 0.5f - th2 / 24.0f;
-    C = (float)(1.0 / 6.0) - th2 / 120.0f;
-  } else {
-    const float sn = sinf(th), cs = cosf(th);
-    A = sn / th;
-    B = (1.0f - cs) / th2;
-    C = (th - sn) / (th2 * th);
-  }
-  const float W[9] = {0.0f, -w2, w1, w2, 0.0f, -w0, -w1, w0, 0.0f};
-  float WW[9];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      WW[i * 3 + j] = (W[i * 3] * W[j] + W[i * 3 + 1] * W[3 + j]) +
-                      W[i * 3 + 2] * W[6 + j];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    float t = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const float I = i == j ? 1.0f : 0.0f;
-      E[i * 4 + j] = (I + A * W[i * 3 + j]) + B * WW[i * 3 + j];
-      const float V = (I + B * W[i * 3 + j]) + C * WW[i * 3 + j];
-      t = j == 0 ? V * xi[0] : t + V * xi[j];
-    }
-    E[i * 4 + 3] = t;
-  }
-}
-
-// T <- T o E (se3.compose: rotations multiplied, T's translation added).
-__device__ void se3_compose_into(float* T, const float* E) {
-  float out[12];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float s = (T[i * 4] * E[j] + T[i * 4 + 1] * E[4 + j]) +
-                      T[i * 4 + 2] * E[8 + j];
-      out[i * 4 + j] = j == 3 ? s + T[i * 4 + 3] : s;
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < 12; ++k) T[k] = out[k];
 }
 
 // The projections of features n0..n1-1 in one pass, from the block's
@@ -697,13 +640,10 @@ __host__ __device__ inline size_t align_shared_bytes(int N, int P) {
 }
 
 // The regularised 6x6 solve of a refresh pass, on warp 0: H + 1e-4 tr(H)/6
-// I + 1e-8 I (H from its upper triangle in sum[0..20]) factored by
-// ops/solve.chol_solve_small's rule, lane i < 6 holding row i and the rows
-// of a column computed at once (each entry with the chain's operations in
-// its order); lanes 0-6 then solve for the columns of H^-1 and for the
-// step (g in sum[21..26]), and lane 0 sets T <- T o exp(-step / a).
+// I + 1e-8 I (H from its upper triangle in sum[0..20], g in sum[21..26])
+// solved for H^-1 and the step by solve6_lanes (se3_solve.cuh), then lane 0
+// sets T <- T o exp(-step / a).
 __device__ void refresh_solve(AlignShared& sh, float a_il) {
-  const unsigned full = 0xffffffffu;
   const int lane = threadIdx.x;
   if (lane == 0) {
     const float n_ok = clamp_lo_nan(sh.sum[28], 1.0f);
@@ -711,51 +651,12 @@ __device__ void refresh_solve(AlignShared& sh, float a_il) {
     sh.cost = sh.sum[27] / n_ok;
     sh.frac = sh.sum[29] / n_ok;
   }
-  float tr = sh.sum[0];   // the diagonal sits at 0, 6, 11, 15, 18, 20
-#pragma unroll
-  for (int i = 1; i < 6; ++i) tr = tr + sh.sum[i * 6 - i * (i - 1) / 2];
-  const float reg = 1e-4f * tr / 6.0f;
-  const int row = lane < 6 ? lane : 5;
-  float A[6], Lr[6];
-#pragma unroll
-  for (int j = 0; j < 6; ++j) {
-    const int r = min(row, j), c = max(row, j);
-    A[j] = sh.sum[r * 6 - r * (r - 1) / 2 + (c - r)];
-    if (j == row) A[j] = (A[j] + reg) + 1e-8f;
-  }
-#pragma unroll
-  for (int j = 0; j < 6; ++j) {   // column j: s - L[row][q] L[j][q], q up
-    float s = A[j];
-#pragma unroll
-    for (int q = 0; q < j; ++q) s = s - Lr[q] * __shfl_sync(full, Lr[q], j);
-    const float d = __shfl_sync(full, sqrtf(clamp_lo_nan(s, 1e-20f)), j);
-    Lr[j] = row == j ? d : (row > j ? s / d : 0.0f);
-  }
-  if (lane < 6) {
-#pragma unroll
-    for (int j = 0; j < 6; ++j) sh.L[lane * 6 + j] = Lr[j];
-  }
-  __syncwarp();
-  if (lane < 7) {   // e_lane (lane < 6) or g (lane 6)
-    float yv[6], x[6];
-#pragma unroll
-    for (int i = 0; i < 6; ++i) {
-      float s = lane == 6 ? sh.sum[21 + i] : (i == lane ? 1.0f : 0.0f);
-#pragma unroll
-      for (int q = 0; q < i; ++q) s = s - sh.L[i * 6 + q] * yv[q];
-      yv[i] = s / sh.L[i * 7];
-    }
-#pragma unroll
-    for (int i = 5; i >= 0; --i) {
-      float s = yv[i];
-#pragma unroll
-      for (int q = i + 1; q < 6; ++q) s = s - sh.L[q * 6 + i] * x[q];
-      x[i] = s / sh.L[i * 7];
-    }
-#pragma unroll
-    for (int i = 0; i < 6; ++i) sh.X[lane * 6 + i] = x[i];
-  }
-  __syncwarp();
+  solve6_lanes(sh.sum, sh.sum + 21,
+               [](float a, float tr) {
+                 const float reg = 1e-4f * tr / 6.0f;
+                 return (a + reg) + 1e-8f;
+               },
+               sh.L, sh.X);
   if (lane == 0) {
 #pragma unroll
     for (int i = 0; i < 36; ++i) sh.Hinv[i] = sh.X[i];

@@ -114,15 +114,17 @@ import torch
 from ..config import SvoConfig
 from ..device import resolve
 from ..ops import pyramid
-from ..ops.kernels import _build, align_kernel, pyramid_kernel
+from ..ops.kernels import _build, align_kernel, pyramid_kernel, refine_kernel
 from ..utils import profiling
 from .state import FrameOut, SlamState, init_state, init_states
 from .step import (device_decisions, device_decisions_batched,
                    device_flags, device_flags_batched, make_batched_phases,
                    make_phases)
 
-COUNTERS = (pyramid_kernel.LAUNCHES, align_kernel.LAUNCHES)
-KERNELS = {**pyramid_kernel.KERNELS, **align_kernel.KERNELS}
+COUNTERS = (pyramid_kernel.LAUNCHES, align_kernel.LAUNCHES,
+            refine_kernel.LAUNCHES)
+KERNELS = {**pyramid_kernel.KERNELS, **align_kernel.KERNELS,
+           **refine_kernel.KERNELS}
 _COUNTER = {key: counts for counts in COUNTERS for key in counts}
 # the bodies, in capture order: the single step's, then those only the
 # batched step has (the bootstrap of some sequences of a booted batch)

@@ -74,8 +74,9 @@ def _dryrun_frames(cfg: SvoConfig, n: int, rank: int, device) -> tuple:
 
 def _dryrun_steps(cfg: SvoConfig, left, right, device):
     """The dry run's steps on one sequence: the bootstrap step, then one
-    tracked step on the same frames (a bootstrap runs no alignment, so
-    ``align_levels`` launches only there), through the eager batched step. Returns the
+    tracked step on the same frames (a bootstrap runs no alignment and no
+    pose refinement, so ``align_levels`` and ``refine_pose`` launch only
+    there), through the eager batched step. Returns the
     tracked step's FrameOut."""
     from .engine.state import init_states
     from .engine.step import make_batched_step
@@ -91,12 +92,12 @@ def _dryrun_steps(cfg: SvoConfig, left, right, device):
 def _dryrun_rank(rank: int, n: int) -> dict:
     """One rank of the dry run, on the rank's device: the bootstrap and one
     tracked step on this rank's sequence (:func:`_dryrun_steps`), then the
-    sharded BA over all ranks. Returns the rank's backend, device, B1-B4
+    sharded BA over all ranks. Returns the rank's backend, device, kernel
     launch counts (0 on the CPU, where the kernels' plain versions run) and
     the tracked pose on the host."""
     import torch.distributed as dist
 
-    from .ops.kernels import align_kernel, pyramid_kernel
+    from .ops.kernels import align_kernel, pyramid_kernel, refine_kernel
     from .parallel import dist_ba, mesh as mesh_mod
 
     cfg = _tiny_cfg()
@@ -109,7 +110,8 @@ def _dryrun_rank(rank: int, n: int) -> dict:
     # --- axis 2: distributed Schur-complement BA over the kf group ---
     dist_ba.dryrun_rank(mesh_mod.make(n, axis_name="kf"))
     return {"backend": dist.get_backend(), "device": str(device),
-            "launches": {**pyramid_kernel.LAUNCHES, **align_kernel.LAUNCHES},
+            "launches": {**pyramid_kernel.LAUNCHES, **align_kernel.LAUNCHES,
+                         **refine_kernel.LAUNCHES},
             "T_wc": outs.T_wc.cpu().numpy()}
 
 

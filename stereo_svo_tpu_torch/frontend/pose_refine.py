@@ -1,6 +1,11 @@
 """Motion-only pose refinement: Gauss-Newton on reprojection (and stereo
 disparity) residuals with a motion prior — port of
-``stereo_svo_tpu/frontend/pose_refine.py``."""
+``stereo_svo_tpu/frontend/pose_refine.py``.
+
+On CUDA :func:`refine` is one launch of ``refine_pose_kernel``
+(``ops/kernels/refine_kernel.refine_pose``; under ``vmap``, one for the
+batch); its plain version, :func:`refine_plain`, is the chain of PyTorch
+ops that the CPU runs."""
 
 from __future__ import annotations
 
@@ -11,6 +16,7 @@ import torch
 from ..config import CameraConfig, SvoConfig
 from ..geometry import camera, se3
 from ..ops import solve
+from ..ops.kernels import _build, refine_kernel
 
 
 def _norm(x: torch.Tensor) -> torch.Tensor:
@@ -30,8 +36,28 @@ def refine(cam: CameraConfig, cfg: SvoConfig, T_cw: torch.Tensor,
     Residual rows are whitened by ``obs_sigma`` (px); ``T_prior`` adds the
     Gaussian motion prior (cfg.refine_prior_*_sig); ``disp_obs`` with
     ``disp_mask`` adds a disparity row per feature (gated by
-    cfg.refine_stereo_weight). Returns (T_cw, inlier_mask, stats).
+    cfg.refine_stereo_weight). Returns (T_cw, inlier_mask, stats). On
+    CUDA one ``refine_pose_kernel`` launch; on the CPU
+    :func:`refine_plain`.
     """
+    args = (T_cw, X_world, uv_obs, mask)
+    optional = dict(obs_sigma=obs_sigma, T_prior=T_prior, disp_obs=disp_obs,
+                    disp_mask=disp_mask, obs_sigma_d=obs_sigma_d)
+    if _build.plain(*args, *optional.values()):
+        return refine_plain(cam, cfg, *args, **optional)
+    return refine_kernel.refine_pose(cam, cfg, *args, **optional)
+
+
+def refine_plain(cam: CameraConfig, cfg: SvoConfig, T_cw: torch.Tensor,
+                 X_world: torch.Tensor, uv_obs: torch.Tensor,
+                 mask: torch.Tensor, obs_sigma: torch.Tensor | None = None,
+                 T_prior: torch.Tensor | None = None,
+                 disp_obs: torch.Tensor | None = None,
+                 disp_mask: torch.Tensor | None = None,
+                 obs_sigma_d: torch.Tensor | None = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
+    """:func:`refine` as a chain of PyTorch ops (the reference's
+    arithmetic); under ``torch.func.vmap`` each op takes the batch."""
     dev = T_cw.device
     sig = torch.ones(X_world.shape[0], device=dev) if obs_sigma is None \
         else obs_sigma

@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``), and the checks
+"""Build and load the port's CUDA kernels (``csrc/*.cu``, with the
+headers they share, ``csrc/*.cuh``), and the checks
 every wrapper runs before a launch.
 
 ``nvcc`` compiles every source into one shared library with a plain C
@@ -48,6 +49,10 @@ _SIGNATURES = {
     "svo_align_threads": [_I, _I],
     "svo_align_levels": [_P, _P, _P, _P, _P, _P, _I, _P, _L, _P, _L, _P, _L,
                          _P, _L, _P, _L, _I, _I, _F, _I, _P, _I, _I, _P],
+    "svo_refine_threads": [_I],
+    "svo_refine_pose": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P,
+                        _L, _P, _L, _P, _L, _I, _P, _P, _I, _I, _P, _P, _P,
+                        _I, _P],
     # the frame graph's assembly (csrc/frame_graph.cu)
     "svo_graph_create": [_P],
     "svo_graph_destroy": [_P],
@@ -80,7 +85,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    sources = sorted(CSRC.glob("*.cu"))
+    sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         h.update(src.name.encode())

@@ -318,6 +318,10 @@ def test_counter_of_reads_libcuda_and_profiler_names():
                          "AlignArgsEi",
                          "void (anonymous namespace)::align_levels_kernel<4>"
                          "((anonymous namespace)::AlignArgs, int)"),
+        "refine_pose": ("_ZN12_GLOBAL__N_118refine_pose_kernelILi256EEEvNS_10"
+                        "RefineArgsE",
+                        "void (anonymous namespace)::refine_pose_kernel<256>"
+                        "((anonymous namespace)::RefineArgs)"),
     }
     assert set(names) == set(graphed.KERNELS)
     for key, forms in names.items():
@@ -446,11 +450,13 @@ def test_replays_count_launches_and_repeat(cuda_device):
     nodes = step.kernel_nodes
     assert nodes["P"] == {"halfsample": 1, "gradients": 1,
                           "sample_patches": 0, "gn_accumulate": 0,
-                          "align_levels": 0}
+                          "align_levels": 0, "refine_pose": 0}
     assert step.nodes["P"]["kernel"] == 2
-    # the alignment is one node; B4 is off the main path
-    assert nodes["A_ok"]["align_levels"] == 1
-    assert nodes["A_fail"]["align_levels"] == 1
+    # the alignment and the pose refinement are one node each; B4 is off
+    # the main path
+    for body in ("A_ok", "A_fail"):
+        assert nodes[body]["align_levels"] == 1
+        assert nodes[body]["refine_pose"] == 1
     assert nodes["A_ok"]["gn_accumulate"] == 0
     state, _ = step(step.state, lefts[0], rights[0])
     before = _clone(state)

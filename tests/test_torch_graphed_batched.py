@@ -241,4 +241,6 @@ def test_cuda_graphed_batched_equals_eager_and_node_counts(cuda_device):
                                                         bstep.nodes[name])
     assert bstep.kernel_nodes["P"] == {"halfsample": 1, "gradients": 1,
                                        "sample_patches": 0, "gn_accumulate": 0,
-                                       "align_levels": 0}
+                                       "align_levels": 0, "refine_pose": 0}
+    for body in ("A_ok", "A_fail"):     # the batch's refinements: one node
+        assert bstep.kernel_nodes[body]["refine_pose"] == 1
