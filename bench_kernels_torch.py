@@ -29,22 +29,15 @@ epipolar segments (KITTI), ``epi_search_ms``. Each row gives:
 
 - ``eager_ms``: CUDA events around each call (``utils/profiling.time_fn``);
 - ``graphed_ms``: the row captured alone as a ``torch.cuda.CUDAGraph``
-  after a warm-up, the median of replays between CUDA events;
+  after a warm-up, the mean of back-to-back replays between one pair of
+  CUDA events (the device's time: the host issues them faster than even
+  a one-kernel graph runs);
 - ``kernel_nodes``: the graph's kernel nodes, and ``b_kernels`` those of
   B1-B4 among them, by the kernel's launch counter (read through libcuda,
   ``engine/graphed.scan``).
 
-``align_ms`` on the card adds ``chain_graphed_ms`` and
-``chain_kernel_nodes`` (the chain of ops that ``align_levels_kernel``
-replaced, ``ops/align.align_plain``, as its own graph on the same
-arguments) and ``problems8_graphed_ms`` (the kernel over 8 initial poses
-in one launch, ``vmap``).
-
-``pose_refine_ms`` on the card (``refine_pose_kernel``, one launch) adds
-``chain_graphed_ms`` and ``chain_kernel_nodes`` (the chain of ops that the
-kernel replaced, ``frontend/pose_refine.refine_plain``, as its own graph on
-the same arguments) and ``problems8_graphed_ms`` (the kernel over 8
-initial poses in one launch, ``vmap``).
+A fused kernel against the chain of ops it replaced is chip_smoke.py
+phase 2's (``align_rows``, ``refine_rows``), timed by :func:`graphed_ms`.
 
 ``full_step_ms``: the eager step on the tracked frame, and the graphed
 step's frame graph replayed on it (its kernel nodes: the bodies a tracked
@@ -194,8 +187,10 @@ def rows_of(calls_track: dict, calls_kf: dict) -> dict:
 
 def graphed_ms(fn, args, stream, replays: int = GRAPH_REPLAYS):
     """``fn(*args)`` captured alone as a CUDA graph on ``stream`` after a
-    warm-up there: (median ms of a replay between CUDA events, the graph's
-    nodes by kind, B1-B4 nodes by launch counter)."""
+    warm-up there: (ms of a replay, the mean of ``replays`` back-to-back
+    replays between one pair of CUDA events, the graph's nodes by kind,
+    B1-B4 nodes by launch counter). An event pair around each replay
+    would add the host's issue time to a short graph's."""
     import torch
     from stereo_svo_tpu_torch.engine import graphed
 
@@ -210,74 +205,16 @@ def graphed_ms(fn, args, stream, replays: int = GRAPH_REPLAYS):
     graph.instantiate()
     graph.replay()
     torch.cuda.synchronize()
-    pairs = []
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
     for _ in range(replays):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
         graph.replay()
-        b.record()
-        pairs.append((a, b))
+    b.record()
     torch.cuda.synchronize()
-    ms = statistics.median(a.elapsed_time(b) for a, b in pairs)
+    ms = a.elapsed_time(b) / replays
     del graph
     return ms, kinds, b_kernels
-
-
-def align_extra(args, stream) -> dict:
-    """The ``align_ms`` row's comparisons on the card: the chain of ops that
-    ``align_levels_kernel`` replaced (``ops/align.align_plain``: PyTorch ops,
-    B3 and B4) as its own graph on the same arguments, and the kernel over
-    8 problems (8 initial poses around the frame's, one launch)."""
-    import torch
-    from stereo_svo_tpu_torch.geometry import se3
-    from stereo_svo_tpu_torch.ops import align
-
-    levels, tmpl, cam, cfg, T_init = args
-    chain_ms, kinds, _ = graphed_ms(align.align_plain, args, stream)
-    gen = torch.Generator().manual_seed(0)
-    xi = (0.004 * torch.randn(8, 6, generator=gen)).to(T_init.device)
-    Ts = torch.stack([se3.compose(se3.exp(x), T_init) for x in xi])
-
-    def batch(Ts):
-        return torch.func.vmap(
-            lambda T: align.align(levels, tmpl, cam, cfg, T))(Ts)
-    b_ms, b_kinds, b_kernels = graphed_ms(batch, (Ts,), stream)
-    return {"chain_graphed_ms": chain_ms,
-            "chain_kernel_nodes": kinds["kernel"],
-            "problems8_graphed_ms": b_ms,
-            "problems8_kernel_nodes": b_kinds["kernel"],
-            "problems8_align_levels_nodes": b_kernels["align_levels"]}
-
-
-def refine_extra(call, stream) -> dict:
-    """The ``pose_refine_ms`` row's comparisons on the card, from the
-    recorded ``call`` (function, arguments, keyword arguments): the chain
-    of ops that ``refine_pose_kernel`` replaced
-    (``frontend/pose_refine.refine_plain``) as its own graph on the same
-    arguments, and the kernel over 8 problems (8 initial poses around the
-    frame's, one launch)."""
-    import torch
-    from stereo_svo_tpu_torch.frontend import pose_refine
-    from stereo_svo_tpu_torch.geometry import se3
-
-    fn, (cam, cfg, T_cw, *rest), kwargs = call
-    chain_ms, kinds, _ = graphed_ms(
-        lambda T: pose_refine.refine_plain(cam, cfg, T, *rest, **kwargs),
-        (T_cw,), stream)
-    gen = torch.Generator().manual_seed(0)
-    xi = (0.004 * torch.randn(8, 6, generator=gen)).to(T_cw.device)
-    Ts = torch.stack([se3.compose(se3.exp(x), T_cw) for x in xi])
-
-    def batch(Ts):
-        return torch.func.vmap(
-            lambda T: fn(cam, cfg, T, *rest, **kwargs))(Ts)
-    b_ms, b_kinds, b_kernels = graphed_ms(batch, (Ts,), stream)
-    return {"chain_graphed_ms": chain_ms,
-            "chain_kernel_nodes": kinds["kernel"],
-            "problems8_graphed_ms": b_ms,
-            "problems8_kernel_nodes": b_kinds["kernel"],
-            "problems8_refine_pose_nodes": b_kernels["refine_pose"]}
 
 
 def step_graphed_ms(step, state, left, right,
@@ -374,8 +311,8 @@ def stage_table(cfg, lefts, rights, at: int = AT, device="cuda",
     if t_track is None or t_kf is None:
         raise ValueError(f"no tracked or no keyframe frame from frame {at} "
                          f"of {T} (keyframes {np.nonzero(kf)[0].tolist()})")
-    calls_track = frame_inputs(cfg, step, lefts, rights, t_track)
-    rows = rows_of(calls_track, frame_inputs(cfg, step, lefts, rights, t_kf))
+    rows = rows_of(frame_inputs(cfg, step, lefts, rights, t_track),
+                   frame_inputs(cfg, step, lefts, rights, t_kf))
     stream = torch.cuda.Stream(device) if on_card else None
     table = {}
     for name in (r for r in ROWS if r in rows):
@@ -395,10 +332,6 @@ def stage_table(cfg, lefts, rights, at: int = AT, device="cuda",
             row["graphed_ms"], kinds, row["b_kernels"] = graphed_ms(
                 fn, args, stream)
             row["kernel_nodes"] = kinds["kernel"]
-            if name == "align_ms":
-                row.update(align_extra(args, stream))
-            if name == "pose_refine_ms":
-                row.update(refine_extra(calls_track[name], stream))
         table[name] = row
     steady = ms[1:]
     step_nonkf = statistics.median(
@@ -438,8 +371,9 @@ def main(argv=None) -> int:
     out = stage_table(cfg, frames[0], frames[1], device=device)
     out.update(config=name, at=AT, device=bench_torch.device_line(device),
                timing="eager_ms: CUDA events around each call (median of "
-                      "20); graphed_ms: the row's own CUDA graph, median "
-                      f"of {GRAPH_REPLAYS} replays between CUDA events")
+                      "20); graphed_ms: the row's own CUDA graph, mean "
+                      f"of {GRAPH_REPLAYS} back-to-back replays between "
+                      "CUDA events")
     print(json.dumps(out, indent=1))
     return 0
 

@@ -182,8 +182,9 @@ def zero_launches() -> None:
     """Every kernel launch counter to 0, the graphed steps' body runs so
     far added first (``graphed.settle``: one read of the device)."""
     from stereo_svo_tpu_torch.engine import graphed
+    from stereo_svo_tpu_torch.ops import kernels
     graphed.settle()
-    for counts in graphed.COUNTERS:
+    for counts in kernels.counters():
         for k in counts:
             counts[k] = 0
 
@@ -193,8 +194,9 @@ def launches() -> dict:
     body runs added: one read of the device). On the CPU, where the
     wrappers run the plain versions, they stay 0."""
     from stereo_svo_tpu_torch.engine import graphed
+    from stereo_svo_tpu_torch.ops import kernels
     graphed.settle()
-    return {k: v for counts in graphed.COUNTERS for k, v in counts.items()}
+    return kernels.launches()
 
 
 def timed_runs(step, lefts, rights, runs: int, batched: bool = False):

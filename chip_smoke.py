@@ -23,8 +23,13 @@ Phases, one result line each, in order:
      whole alignment in one launch, align_rows) against the chain of ops,
      B3 and B4 it replaced, within ALIGN_TOL_REL of each output's largest
      entry, bit-reproducible, at the EuRoC, KITTI, stress and loop-edge
-     shapes and over 8 problems (8 sequences; 8 edges), each with its
-     graphed_us and the chain's chain_graphed_us. Each row gives:
+     shapes and over 8 problems (8 sequences; 8 edges), and refine_pose
+     (the whole pose refinement in one launch, refine_rows) likewise
+     against its chain of ops at the EuRoC, KITTI and stress widths and
+     over 8 sequences; each fused row with its graphed_us, the chain's
+     chain_graphed_us (each captured alone as a CUDA graph, the mean of
+     back-to-back replays: bench_kernels_torch.graphed_ms) and
+     chain_kernel_nodes. Each row gives:
      ms and plain_ms (median CUDA-event pair around one call, 60 runs);
      device_us (torch.profiler device time of the kernel's own CUDA
      functions per call over 200 back-to-back calls, or an event pair
@@ -71,8 +76,9 @@ Phases, one result line each, in order:
      (its launches per online-loop call); reports the K_loop replays, the
      median online-loop keyframe frame, and for one eager call on the
      final state under torch.profiler its CUDA launches and device ms; per
-     refine_trajectory call its kernel launches and host ms (its device ms
-     are profile_step.py's "loop" line);
+     refine_trajectory call its kernel launches and host ms, and for one
+     more call on the final state under torch.profiler its CUDA launches
+     and device ms;
   7b. the same at 752×480 on tests/test_online_loop.py's rig (fx 760,
      baseline 0.25, a 3-keyframe window, a 12-slot bank), with
      online_loop_every=1 and the control at 0; gates loop closures and
@@ -265,6 +271,9 @@ import sys
 import time
 import warnings
 
+from stereo_svo_tpu_torch.ops.kernels import KERNELS
+from stereo_svo_tpu_torch.ops.kernels import counters as launch_counters
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_FRAMES, DT, SEED = 100, 0.08, 0
 N_AFFINE_FRAMES = 50
@@ -437,43 +446,8 @@ COPY_KEYS = ("cudaMemcpyAsync", "cudaMemcpy", "cudaMemsetAsync")
 MEM_BYTES_PER_S = 3.35e12                  # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12                    # H100 SXM, float32, no tensor
                                            # cores
-TPU_KERNELS = {                            # pl.pallas_call sites replaced
-    "halfsample": "stereo_svo_tpu/ops/pallas/pyramid_kernel.py:37",
-    "gradients": "stereo_svo_tpu/ops/pallas/pyramid_kernel.py:70",
-    "sample_patches": "stereo_svo_tpu/ops/pallas/align_kernel.py:110",
-    "gn_accumulate": "stereo_svo_tpu/ops/pallas/align_kernel.py:217",
-    # no Pallas kernel: the jnp chain of ops/align.py:align fused with
-    # gn_accumulate's accumulation
-    "align_levels": "none (fuses stereo_svo_tpu/ops/align.py:align with "
-                    "ops/pallas/align_kernel.py:217)",
-    # no Pallas kernel: the jnp chain of frontend/pose_refine.py:refine
-    "refine_pose": "none (fuses stereo_svo_tpu/frontend/pose_refine.py:"
-                   "refine)",
-}
-SOURCES = {"halfsample": "stereo_svo_tpu_torch/csrc/pyramid.cu",
-           "gradients": "stereo_svo_tpu_torch/csrc/pyramid.cu",
-           "sample_patches": "stereo_svo_tpu_torch/csrc/align.cu",
-           "gn_accumulate": "stereo_svo_tpu_torch/csrc/align.cu",
-           "align_levels": "stereo_svo_tpu_torch/csrc/align.cu",
-           "refine_pose": "stereo_svo_tpu_torch/csrc/pose_refine.cu"}
-# the CUDA functions each wrapper launches (as torch.profiler names them);
-# gn_partial_kernel/gn_final_kernel are the two-launch B4 of earlier trees,
-# which compare_kernels.py times
-# halfsample_kernel is the one-launch-per-level B1 of earlier trees,
-# gradients_kernel the one-launch-per-level B2
-KERNEL_FUNCTIONS = {"halfsample": ("pyramid_levels_kernel",
-                                   "halfsample_kernel"),
-                    "gradients": ("gradients_levels_kernel",
-                                  "gradients_kernel"),
-                    "sample_patches": ("sample_patch_kernel",),
-                    "gn_accumulate": ("gn_accumulate_kernel",
-                                      "gn_partial_kernel", "gn_final_kernel"),
-                    "align_levels": ("align_levels_kernel",),
-                    "refine_pose": ("refine_pose_kernel",)}
-# the kernels the paths launch: B4 is off them since the alignment is one
-# align_levels launch (B4 keeps its phase-2 rows)
-PATH_KERNELS = ("halfsample", "gradients", "sample_patches", "align_levels",
-                "refine_pose")
+# the kernels the paths launch (B4 keeps its phase-2 rows)
+PATH_KERNELS = tuple(k for k, v in KERNELS.items() if v.on_path)
 # align_levels against its plain version (the chain of ops, B3 and B4 on
 # the card): the largest error within ALIGN_TOL_ABS (the pose's entries) or
 # within ALIGN_TOL_REL of each output's largest entry (the cost)
@@ -487,9 +461,6 @@ LIBRARY_CALLS = {
     "sample_patches": "torch.nn.functional.grid_sample(bilinear, border, "
                       "align_corners=True) on a grid built outside the "
                       "timed region (compared at interior centres)",
-    "gn_accumulate": None,
-    "align_levels": None,
-    "refine_pose": None,
 }
 NO_LIBRARY_CALL = ("no single PyTorch call computes the sample, the Huber "
                    "weight and the normal equations together")
@@ -536,32 +507,18 @@ def cuda_ms(fn, n: int = N_TIMED, warmup: int = 5) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
-def graphed_us(fn, n: int = 100) -> float:
-    """Device µs of one replay of ``fn()`` captured alone as a CUDA graph
-    (after a warm-up on the capture stream): an event pair around ``n``
-    back-to-back replays. What a chain of ops costs inside the frame
-    graph, where the host is not on its path."""
+def graphed_us(kernel, plain) -> dict:
+    """A fused kernel's and its chain's µs, each call captured alone as a
+    CUDA graph (bench_kernels_torch.graphed_ms: the mean of back-to-back
+    replays), and the chain's kernel nodes: what each costs inside the
+    frame graph, where the host is not on its path."""
     import torch
+    import bench_kernels_torch
     stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(stream)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=stream):
-        fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(n):
-        graph.replay()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) * 1e3 / n
+    ms, _, _ = bench_kernels_torch.graphed_ms(kernel, (), stream)
+    chain_ms, kinds, _ = bench_kernels_torch.graphed_ms(plain, (), stream)
+    return {"graphed_us": ms * 1e3, "chain_graphed_us": chain_ms * 1e3,
+            "chain_kernel_nodes": kinds["kernel"]}
 
 
 def align_bytes_flops(N: int, P: int, schedule) -> tuple:
@@ -714,10 +671,13 @@ def check_kernels(device, frame, kitti_frame, thumb):
         torch.cuda.synchronize()
         err_abs, err_rel = _max_err(out, ref)
         ok = err_abs <= tol_abs or err_rel <= tol_rel
-        dev_us, per_call, method = device_us(kernel, KERNEL_FUNCTIONS[name])
+        dev_us, per_call, method = device_us(
+            kernel, (KERNELS[name].function,))
         bound, bound_by = bound_us(nbytes, flops)
-        row = {"name": name, "route": "cuda", "source": SOURCES[name],
-               "replaces": TPU_KERNELS[name], "shape": shape, "path": path,
+        row = {"name": name, "route": "cuda",
+               "source": f"stereo_svo_tpu_torch/{KERNELS[name].source}",
+               "replaces": KERNELS[name].replaces, "shape": shape,
+               "path": path,
                "launches": None, "launches_per_frame": None,
                "max_abs_err": err_abs, "max_rel_err": err_rel,
                "tol_abs": tol_abs, "tol_rel": tol_rel,
@@ -726,7 +686,7 @@ def check_kernels(device, frame, kitti_frame, thumb):
                "cuda_launches_per_call": per_call,
                "host_us": host_us(kernel), "bytes": nbytes, "flops": flops,
                "bound_us": bound, "bound_ms": bound / 1e3,
-               "bound_by": bound_by, "library_call": LIBRARY_CALLS[name],
+               "bound_by": bound_by, "library_call": LIBRARY_CALLS.get(name),
                "library_ms": None, "library_device_us": None,
                "library_host_us": None, "library_max_abs_err": None,
                **(extra or {})}
@@ -1213,8 +1173,7 @@ def align_rows(record, device, gen, img, kitti, thumb, edge):
                 "passes": sum(c * (1 + i) for c, i in s.schedule),
                 "threads": _build.load_library().svo_align_threads(
                     N, s.patch),
-                "graphed_us": graphed_us(kernel),
-                "chain_graphed_us": graphed_us(plain, 20),
+                **graphed_us(kernel, plain),
                 "bound_note": "latency: the passes depend on each other",
                 **(extra or {})}
 
@@ -1363,8 +1322,7 @@ def refine_rows(record, device, gen):
         chunks, inner = rk._static(cfg.camera, cfg)[2]
         return {"use": use, "passes": chunks * (1 + inner) + 1,
                 "threads": _build.load_library().svo_refine_threads(N),
-                "graphed_us": graphed_us(kernel),
-                "chain_graphed_us": graphed_us(plain, 20),
+                **graphed_us(kernel, plain),
                 "bound_note": "latency: the passes depend on each other",
                 **(extra or {})}
 
@@ -1482,7 +1440,7 @@ def prof_launches(fn, warmup=None):
                            for e in on_device) / 1e3
     # every record of the device: kernels, copies, memsets
     out["device_records"] = sum(e.count for e in on_device)
-    out["by_kernel"] = dict.fromkeys(graphed.KERNELS, 0)
+    out["by_kernel"] = dict.fromkeys(KERNELS, 0)
     for e in on_device:
         key = graphed.counter_of(e.key)
         if key is not None:
@@ -1493,7 +1451,7 @@ def prof_launches(fn, warmup=None):
 class EagerSvo:
     """The eager step (engine/step.make_step) driven as StereoSvo drives
     the graphed one, with StereoSvo's trajectory() and metrics(): phase
-    12's and profile_step.py's eager runs."""
+    12's eager runs."""
 
     def __init__(self, cfg, device="cuda"):
         from stereo_svo_tpu_torch.engine import state as state_mod
@@ -3234,7 +3192,7 @@ def check_kernel_calls(calls) -> dict:
     # launch
     cpu = any(a.device.type == "cpu" for _, args, _ in calls for a in args
               if isinstance(a, torch.Tensor))
-    missing = [k for k in KERNEL_FUNCTIONS if k not in rows
+    missing = [k for k in KERNELS if k not in rows
                and k not in (("align_levels", "refine_pose") if cpu
                              else ("gn_accumulate",))]
     require(not missing, f"no recorded call of {missing}")
@@ -3267,15 +3225,12 @@ def sharded_rank(rank: int, n: int, cfg, n_seqs: int, frames: int,
     import torch.distributed as dist
     from stereo_svo_tpu_torch.engine import graphed, runner
     from stereo_svo_tpu_torch.io import synthetic
-    from stereo_svo_tpu_torch.ops.kernels import align_kernel as ak
-    from stereo_svo_tpu_torch.ops.kernels import pyramid_kernel as pk
-    from stereo_svo_tpu_torch.ops.kernels import refine_kernel as rk
     from stereo_svo_tpu_torch.parallel import mapping
     from stereo_svo_tpu_torch.parallel import mesh as mesh_mod
 
     ready_s = time.time() - t_spawn
     device = mesh_mod.rank_device()
-    counters = (pk.LAUNCHES, ak.LAUNCHES, rk.LAUNCHES)
+    counters = launch_counters()
 
     def sync():
         if device.type == "cuda":
@@ -3499,35 +3454,23 @@ def multi_rank_run(cfg, ref8: dict, ref11: dict, smi: str) -> dict:
 
 
 def main() -> int:
-    try:
-        import torch
-    except ImportError:
-        print("FAIL: torch is not installed", file=sys.stderr)
-        return 1
+    import torch
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false: chip_smoke.py "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    try:
-        import stereo_svo_tpu_torch  # noqa: F401  (sets the TF32 flags)
-        import bench_torch
-        from stereo_svo_tpu_torch.config import (SvoConfig, kitti_config,
-                                                 stress_config)
-        from stereo_svo_tpu_torch.engine import step as step_mod
-        from stereo_svo_tpu_torch.engine.runner import StereoSvo
-        from stereo_svo_tpu_torch.io import synthetic
-        from stereo_svo_tpu_torch.ops.kernels import _build
-        from stereo_svo_tpu_torch.ops.kernels import align_kernel as ak
-        from stereo_svo_tpu_torch.ops.kernels import pyramid_kernel as pk
-        from stereo_svo_tpu_torch.ops.kernels import refine_kernel as rk
-    except ImportError as e:
-        print(f"FAIL: the port is not importable ({e}); run chip_smoke.py "
-              "from the root of a checkout", file=sys.stderr)
-        return 1
+    import bench_torch
+    from stereo_svo_tpu_torch.backend import loop_closure
+    from stereo_svo_tpu_torch.config import (SvoConfig, kitti_config,
+                                             stress_config)
+    from stereo_svo_tpu_torch.engine import step as step_mod
+    from stereo_svo_tpu_torch.engine.runner import StereoSvo
+    from stereo_svo_tpu_torch.io import synthetic
+    from stereo_svo_tpu_torch.ops.kernels import _build
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
-    counters = (pk.LAUNCHES, ak.LAUNCHES, rk.LAUNCHES)
+    counters = launch_counters()
     detail = {}
     t_start = time.perf_counter()
     seconds, clock = {}, [t_start, "setup"]
@@ -3669,12 +3612,17 @@ def main() -> int:
     phase7, svo7 = loop_run(lcfg, l_lefts, l_rights, l_gt, counters, device)
     phase7["refine"] = refine_run(lcfg, svo7, l_gt, counters)
     # one eager online-loop call on the final state under torch.profiler:
-    # CUDA launches and device ms (what graph K_loop replays);
-    # refine_trajectory's are profile_step.py's "loop" line (a profile of
-    # its ~63,000 launches takes ~30 s)
+    # CUDA launches and device ms (what graph K_loop replays); then one
+    # more refine_trajectory call (~19,000 launches)
     prof = prof_launches(lambda: step_mod.run_online_loop(lcfg, svo7.state))
     phase7["loop_call"].update(eager_profiled_launches=prof["kernels"],
                                eager_profiled_device_ms=prof["device_ms"])
+    traj7 = svo7.trajectory()
+    prof = prof_launches(lambda: loop_closure.refine_trajectory(
+        lcfg, svo7.state, traj7))
+    phase7["refine"].update(profiled_launches=prof["kernels"],
+                            profiled_device_ms=prof["device_ms"],
+                            profiled_by_kernel=prof["by_kernel"])
     phase7.update(config="SvoConfig(online_loop_every=1, kf_dist_ratio=0.05"
                          ", loop_min_gap=15, loop_min_score=0.75)",
                   scene="planes", traj="loop", dt=LOOP_DT,
@@ -3987,9 +3935,6 @@ def child_main(task: dict) -> int:
     from stereo_svo_tpu_torch.config import SvoConfig
     from stereo_svo_tpu_torch.engine.runner import StereoSvo
     from stereo_svo_tpu_torch.io import synthetic
-    from stereo_svo_tpu_torch.ops.kernels import align_kernel as ak
-    from stereo_svo_tpu_torch.ops.kernels import pyramid_kernel as pk
-    from stereo_svo_tpu_torch.ops.kernels import refine_kernel as rk
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     cfg = SvoConfig()
@@ -4004,8 +3949,7 @@ def child_main(task: dict) -> int:
             cfg.camera, N_FRAMES, DT, kind="arc", seed=SEED, device=device)
     if task["task"] == "profile_frames":
         out = profile_frames("graphed", StereoSvo, cfg, lefts, rights,
-                             (pk.LAUNCHES, ak.LAUNCHES, rk.LAUNCHES),
-                             task["kinds"])
+                             launch_counters(), task["kinds"])
     else:
         out = steady_window(cfg, lefts, rights, task["batch"])
     print(json.dumps(out))

@@ -64,8 +64,8 @@ are the reference's batch-level conds (``step.device_flags_batched``,
 ``step.device_decisions_batched``).
 
 Spans and launch accounting. The host does not know which bodies a frame
-ran, and the launch counters (``pyramid_kernel.LAUNCHES``,
-``align_kernel.LAUNCHES``) do not move on a launch of ``F``. Instead ``F``
+ran, and the launch counters (``ops/kernels.counters``) do not move on
+a launch of ``F``. Instead ``F``
 stamps its own span table (:class:`_Spans`): one-thread kernel nodes that
 read the device's ``%globaltimer`` open and close the frame and every body
 (in the outer chain for ``P`` and ``flags``, inside the IF node's body
@@ -114,18 +114,15 @@ import torch
 from ..config import SvoConfig
 from ..device import resolve
 from ..ops import pyramid
-from ..ops.kernels import _build, align_kernel, pyramid_kernel, refine_kernel
+from ..ops import kernels
+from ..ops.kernels import _build
 from ..utils import profiling
 from .state import FrameOut, SlamState, init_state, init_states
 from .step import (device_decisions, device_decisions_batched,
                    device_flags, device_flags_batched, make_batched_phases,
                    make_phases)
 
-COUNTERS = (pyramid_kernel.LAUNCHES, align_kernel.LAUNCHES,
-            refine_kernel.LAUNCHES)
-KERNELS = {**pyramid_kernel.KERNELS, **align_kernel.KERNELS,
-           **refine_kernel.KERNELS}
-_COUNTER = {key: counts for counts in COUNTERS for key in counts}
+_COUNTER = {key: counts for counts in kernels.counters() for key in counts}
 # the bodies, in capture order: the single step's, then those only the
 # batched step has (the bootstrap of some sequences of a booted batch)
 GRAPHS = ("P", "flags", "boot", "A_ok", "A_fail", "K", "K_loop", "B")
@@ -217,7 +214,8 @@ def counter_of(function: str) -> Optional[str]:
     """The launch counter of the kernel that the CUDA function name
     ``function`` names — mangled, as libcuda gives it, or demangled, as
     torch.profiler does — or None for any other function."""
-    for key, name in KERNELS.items():
+    for key, kernel in kernels.KERNELS.items():
+        name = kernel.function
         if (f"{len(name)}{name}" in function if function.startswith("_Z")
                 else re.search(rf"(?<!\w){name}(?!\w)", function)):
             return key
@@ -271,13 +269,13 @@ def scan(graph) -> Tuple[Dict[str, int], Dict[str, int]]:
     launch counter) of a captured graph, read from the graph through
     libcuda: each kernel node's function and that function's name."""
     kinds = dict.fromkeys(("kernel", "memcpy", "memset", "other"), 0)
-    kernels = dict.fromkeys(KERNELS, 0)
+    by_counter = dict.fromkeys(kernels.KERNELS, 0)
     for kind, name in _nodes(graph):
         kinds[kind] = kinds.get(kind, 0) + 1
         key = counter_of(name) if name is not None else None
         if key is not None:
-            kernels[key] += 1
-    return kinds, kernels
+            by_counter[key] += 1
+    return kinds, by_counter
 
 
 def kernel_names(graph) -> Dict[str, int]:
@@ -1034,4 +1032,4 @@ def make_graphed_batched_step(cfg: SvoConfig, B: int, device="cuda"
 __all__ = ["make_graphed_step", "make_graphed_batched_step", "GraphedStep",
            "GraphedBatchedStep", "capture", "scan", "kernel_names",
            "counter_of", "settle", "live_spans", "stages_of", "GRAPHS",
-           "BATCH_GRAPHS", "KERNELS", "NOT_IN_A_BODY", "CAPTURES", "RING"]
+           "BATCH_GRAPHS", "NOT_IN_A_BODY", "CAPTURES", "RING"]

@@ -97,7 +97,7 @@ def _dryrun_rank(rank: int, n: int) -> dict:
     the tracked pose on the host."""
     import torch.distributed as dist
 
-    from .ops.kernels import align_kernel, pyramid_kernel, refine_kernel
+    from .ops import kernels
     from .parallel import dist_ba, mesh as mesh_mod
 
     cfg = _tiny_cfg()
@@ -110,8 +110,7 @@ def _dryrun_rank(rank: int, n: int) -> dict:
     # --- axis 2: distributed Schur-complement BA over the kf group ---
     dist_ba.dryrun_rank(mesh_mod.make(n, axis_name="kf"))
     return {"backend": dist.get_backend(), "device": str(device),
-            "launches": {**pyramid_kernel.LAUNCHES, **align_kernel.LAUNCHES,
-                         **refine_kernel.LAUNCHES},
+            "launches": kernels.launches(),
             "T_wc": outs.T_wc.cpu().numpy()}
 
 

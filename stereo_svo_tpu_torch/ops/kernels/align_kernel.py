@@ -74,11 +74,8 @@ from .. import interp
 from . import _build
 from .pyramid_kernel import _vmap_rule
 
+# launches by counter (the kernels: ops.kernels.KERNELS)
 LAUNCHES = {"sample_patches": 0, "gn_accumulate": 0, "align_levels": 0}
-# the CUDA function each counter's launches run (csrc/align.cu)
-KERNELS = {"sample_patches": "sample_patch_kernel",
-           "gn_accumulate": "gn_accumulate_kernel",
-           "align_levels": "align_levels_kernel"}
 MAX_IMAGES = 3   # images one B3 launch samples (csrc/align.cu kMaxImages)
 N_OUT = 45       # B4's outputs a problem: H (36), g (6), cost, n_eff, n_inl
 ALIGN_OUT = 14   # align_levels' outputs a problem: T (12), cost, inlier share

@@ -36,10 +36,8 @@ import torch
 
 from . import _build
 
+# launches by counter (the kernels: ops.kernels.KERNELS)
 LAUNCHES = {"halfsample": 0, "gradients": 0}
-# the CUDA function each counter's launches run (csrc/pyramid.cu)
-KERNELS = {"halfsample": "pyramid_levels_kernel",
-           "gradients": "gradients_levels_kernel"}
 CHAIN = 6          # levels one B1 launch builds (csrc/pyramid.cu's tile)
 MAX_LEVELS = 32    # svo_pyramid's limit
 

@@ -41,9 +41,8 @@ from . import _build
 from .align_kernel import _check_lead
 from .pyramid_kernel import _vmap_rule
 
+# launches by counter (the kernels: ops.kernels.KERNELS)
 LAUNCHES = {"refine_pose": 0}
-# the CUDA function the counter's launches run (csrc/pose_refine.cu)
-KERNELS = {"refine_pose": "refine_pose_kernel"}
 REFINE_OUT = 13   # the op's float outputs a problem: T (12), RMS error
 
 

@@ -42,7 +42,8 @@ from stereo_svo_tpu_torch.engine import step as step_mod
 from stereo_svo_tpu_torch.engine.state import FrameOut, init_state
 from stereo_svo_tpu_torch.geometry import se3
 from stereo_svo_tpu_torch.io import synthetic
-from stereo_svo_tpu_torch.ops.kernels import align_kernel, pyramid_kernel
+from stereo_svo_tpu_torch.ops import kernels
+from stereo_svo_tpu_torch.ops.kernels import align_kernel
 
 try:
     from stereo_svo_tpu.config import CameraConfig as JCam
@@ -323,7 +324,7 @@ def test_counter_of_reads_libcuda_and_profiler_names():
                         "void (anonymous namespace)::refine_pose_kernel<256>"
                         "((anonymous namespace)::RefineArgs)"),
     }
-    assert set(names) == set(graphed.KERNELS)
+    assert set(names) == set(kernels.KERNELS)
     for key, forms in names.items():
         for name in forms:
             assert graphed.counter_of(name) == key, name
@@ -448,9 +449,8 @@ def test_replays_count_launches_and_repeat(cuda_device):
     lefts, rights, _ = _frames(cuda_device)
     step = graphed.make_graphed_step(CFG, cuda_device)
     nodes = step.kernel_nodes
-    assert nodes["P"] == {"halfsample": 1, "gradients": 1,
-                          "sample_patches": 0, "gn_accumulate": 0,
-                          "align_levels": 0, "refine_pose": 0}
+    assert nodes["P"] == dict(dict.fromkeys(kernels.KERNELS, 0),
+                              halfsample=1, gradients=1)
     assert step.nodes["P"]["kernel"] == 2
     # the alignment and the pose refinement are one node each; B4 is off
     # the main path
@@ -500,7 +500,7 @@ def test_capture_refuses_a_body_that_syncs(cuda_device):
     pool = torch.cuda.graph_pool_handle()
     with pytest.raises(RuntimeError):
         graphed.capture(lambda: float(x.sum()), pool, side)
-    counts = dict(align_kernel.LAUNCHES), dict(pyramid_kernel.LAUNCHES)
+    counts = kernels.launches()
     # a host read in a body
     orig, body = _patched_body("B", lambda self: bool(
         self.state.tracking_ok))
@@ -511,8 +511,7 @@ def test_capture_refuses_a_body_that_syncs(cuda_device):
     finally:
         graphed.GraphedStep._run_body = orig
     # the counters are as they were: neither warm-up nor capture counts
-    assert (dict(align_kernel.LAUNCHES), dict(pyramid_kernel.LAUNCHES)) \
-        == counts
+    assert kernels.launches() == counts
 
 
 @pytest.mark.cuda

@@ -4,11 +4,16 @@ kernels against their plain versions (``cuda`` marker: skipped without a
 card).
 """
 
+import importlib
+import pathlib
+import re
+
 import numpy as np
 import pytest
 import torch
 
-from stereo_svo_tpu_torch.ops import pyramid
+from stereo_svo_tpu_torch.engine import graphed
+from stereo_svo_tpu_torch.ops import kernels, pyramid
 from stereo_svo_tpu_torch.ops.kernels import align_kernel, pyramid_kernel
 
 try:
@@ -292,6 +297,28 @@ def test_kernel_wrappers_raise_off_cpu_and_cuda():
         pyramid_kernel.pyramid(torch.zeros(8, 8), 0)
     with pytest.raises(ValueError):
         align_kernel.sample_patches(torch.zeros(8, 8), uv, 4)
+
+
+def test_kernel_list_matches_wrappers_sources_and_scan(monkeypatch):
+    """``ops.kernels.KERNELS`` against the code: each wrapper module's
+    launch counters are its entries, each CUDA function it names is a
+    ``__global__`` of the source it names, and ``graphed.scan`` counts
+    kernel nodes under exactly its counters."""
+    here = pathlib.Path(kernels.__file__).resolve().parent
+    modules = {k.module for k in kernels.KERNELS.values()}
+    assert modules == {p.stem for p in here.glob("*_kernel.py")}
+    for module in modules:
+        wrapper = importlib.import_module(f"{kernels.__name__}.{module}")
+        assert {key for key, k in kernels.KERNELS.items()
+                if k.module == module} == set(wrapper.LAUNCHES), module
+    for key, k in kernels.KERNELS.items():
+        text = (here.parents[1] / k.source).read_text()
+        assert re.search(rf"__global__\s+void\s+(?:__\w+__\([^)]*\)\s*)*"
+                         rf"{k.function}\s*\(", text), (key, k.function)
+    assert kernels.launches().keys() == kernels.KERNELS.keys()
+    # no graph on the CPU: scan of a graph with no node
+    monkeypatch.setattr(graphed, "_nodes", lambda graph: iter(()))
+    assert graphed.scan(None)[1].keys() == kernels.KERNELS.keys()
 
 
 # ---- CUDA kernels against their plain versions ------------------------------

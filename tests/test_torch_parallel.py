@@ -28,6 +28,7 @@ from stereo_svo_tpu_torch import entry
 from stereo_svo_tpu_torch.backend import ba
 from stereo_svo_tpu_torch.backend import loop_closure
 from stereo_svo_tpu_torch.geometry import se3
+from stereo_svo_tpu_torch.ops import kernels
 from stereo_svo_tpu_torch.ops.kernels import pyramid_kernel
 from stereo_svo_tpu_torch.parallel import dist_ba
 from stereo_svo_tpu_torch.parallel import mesh as mesh_mod
@@ -399,8 +400,8 @@ def test_phase17_dryrun_kernel_calls_at_their_shapes(dryrun_calls):
     # on the CPU the alignment is the chain of B3 and B4 calls and the
     # pose refinement its chain of ops (on the card one align_levels and
     # one refine_pose launch)
-    assert set(rows) == set(chip_smoke.KERNEL_FUNCTIONS) - {"align_levels",
-                                                            "refine_pose"}
+    assert set(rows) == set(kernels.KERNELS) - {"align_levels",
+                                                "refine_pose"}
     assert rows["halfsample"]["shapes"] == [[[1, 96, 128], 2]]
     assert rows["gradients"]["shapes"] == [[[1, 96, 128], 2]]
     assert {tuple(s[0]) for s in rows["sample_patches"]["shapes"]} == {
