@@ -26,6 +26,10 @@ Phases, one result line each, in order:
      shapes and over 8 problems (8 sequences; 8 edges), and refine_pose
      (the whole pose refinement in one launch, refine_rows) likewise
      against its chain of ops at the EuRoC, KITTI and stress widths and
+     over 8 sequences, and klt_track (the whole KLT in one launch,
+     klt_rows) against its chain of ops and B3 launches within
+     KLT_TOL_PX and KLT_TOL_RES at the EuRoC, KITTI, stress and
+     affine-warp shapes and
      over 8 sequences; each fused row with its graphed_us, the chain's
      chain_graphed_us (each captured alone as a CUDA graph, the mean of
      back-to-back replays: bench_kernels_torch.graphed_ms) and
@@ -418,12 +422,12 @@ STAGE_ROWS = ("pyramid_ms", "fast_score_l0_ms", "detector_ms", "align_ms",
 STAGE_B_NODES = {"align_ms": ("align_levels",),
                  "pose_refine_ms": ("refine_pose",),
                  "align_template_ms": ("sample_patches",),
-                 "klt_ms": ("sample_patches",),
+                 "klt_ms": ("klt_track",),
                  "klt_template_ms": ("sample_patches",),
                  "rebuild_template_ms": ("sample_patches",),
                  "full_step_ms": ("halfsample", "gradients",
                                   "sample_patches", "align_levels",
-                                  "refine_pose")}
+                                  "klt_track", "refine_pose")}
 STAGE_ACCOUNTING = ("per_op_sum_ms", "step_nonkf_ms",
                     "intra_frame_residual_ms", "kf_phase_ms", "kf_rate",
                     "model_frame_ms", "measured_frame_ms", "unaccounted_ms")
@@ -452,6 +456,16 @@ PATH_KERNELS = tuple(k for k, v in KERNELS.items() if v.on_path)
 # the card): the largest error within ALIGN_TOL_ABS (the pose's entries) or
 # within ALIGN_TOL_REL of each output's largest entry (the cost)
 ALIGN_TOL_ABS, ALIGN_TOL_REL = 1e-5, 1e-4
+# klt_track against its plain version (the chain of ops and B3 launches on
+# the card): the convergence flags and the warped count exact, the
+# positions within KLT_TOL_PX and the mean residuals within KLT_TOL_RES of
+# the problem's largest. The sums over each patch run in another order, and
+# 18 dependent iterations through a feature's inverse Hessian carry that
+# far where the Hessian is near singular (random points of a noisy frame:
+# 9.4e-3 px and 1.7e-4 at most over 40 problems on an H100); an iteration
+# stops once its step is below klt_conv_eps (0.03 px), so a position is
+# defined only to that step
+KLT_TOL_PX, KLT_TOL_RES = 0.03, 1e-3
 LIBRARY_CALLS = {
     "halfsample": "copy_ of the frame, then L-1 chained "
                   "torch.nn.functional.avg_pool2d(x, 2) calls",
@@ -1117,6 +1131,7 @@ def check_kernels(device, frame, kitti_frame, thumb):
 
     align_rows(record, device, gen, img, kitti, thumb, edge)
     refine_rows(record, device, gen)
+    klt_rows(record, device, gen, img, kitti)
     return rows
 
 
@@ -1379,6 +1394,159 @@ def refine_rows(record, device, gen):
     refine_case(refine_problem(stress_cfg, stress_cfg.max_features),
                 "phase5", "stress tracking")
     batch_refine_case(eu, BATCH, "phase8", "8 sequences, tracking")
+
+
+def klt_errors(out, ref, what: str) -> dict:
+    """klt_track's (uv, ok, res, n_warped) against its plain version's at
+    KLT_TOL_PX and KLT_TOL_RES, the flags and counts exact: the widest
+    gaps."""
+    import torch
+    uv, ok, res, nw = out
+    puv, pok, pres, pnw = ref
+    require(torch.equal(ok, pok) and torch.equal(nw, pnw),
+            f"klt_track {what}: convergence or warped count differs from "
+            f"the plain version")
+    fin = torch.isfinite(puv)
+    require(torch.equal(torch.isfinite(uv), fin),
+            f"klt_track {what}: finite positions differ")
+    uv_gap = float((uv[fin] - puv[fin]).abs().max()) if bool(
+        fin.any()) else 0.0
+    res_gap = float((res - pres).abs().max()) / max(
+        float(pres.abs().max()), 1e-30) if res.numel() else 0.0
+    require(uv_gap <= KLT_TOL_PX and res_gap <= KLT_TOL_RES,
+            f"klt_track {what}: positions {uv_gap} px, residuals {res_gap} "
+            f"of the largest from the plain version")
+    return {"max_uv_err_px": uv_gap, "max_res_rel_err": res_gap}
+
+
+def klt_bytes_flops(N: int, P: int, L: int, iters: int, B2: int) -> tuple:
+    """The least bytes and the float32 operations of one KLT of N features:
+    the template (patches, gradients, inverse Hessians, masks; the
+    oversized patches where B2 > 1), the positions and edgelet terms read
+    once, each feature's (P+1)² pixels of each level once, the outputs
+    written once; per iteration and pixel ~30 operations (the sample, the
+    illumination fit, g and |e|), per feature ~20 more."""
+    P2 = P * P
+    nbytes = 4.0 * (L * N * (3 * P2 + 4 + (B2 if B2 > 1 else 0))
+                    + N * (2 + 2 + 4 + 4) + L * N * (P + 1) ** 2) \
+        + 2.0 * N + L * N + 4.0 * N * 3 + N
+    flops = L * iters * N * (30.0 * P2 + 20.0)
+    return nbytes, flops
+
+
+def klt_rows(record, device, gen, img, kitti):
+    """Phase 2's rows of the fused KLT (klt_track_kernel): the whole of
+    ops/klt.track in one launch against its chain of ops and B3 launches
+    (track_plain), at each path's N and patch: templates of the frame at N
+    interior points (1 in 20 masked), tracked in the frame brightened
+    (a, b) = (1.1, 3) with noise (sigma 2) from 1.5-px perturbed positions,
+    3 in 10 features edgelets along a direction of their own; the
+    affine-warp row warps through A_inv = I + 0.03 noise, and one level in
+    seven of big_ok is cleared; ``record`` is check_kernels' recorder."""
+    import math
+
+    import torch
+    from stereo_svo_tpu_torch.config import (SvoConfig, kitti_config,
+                                             stress_config)
+    from stereo_svo_tpu_torch.ops import klt, pyramid
+    from stereo_svo_tpu_torch.ops.kernels import klt_kernel as kk
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen).to(device)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(device)
+
+    def klt_problem(image, cfg):
+        N, L = cfg.max_features, cfg.klt_levels
+        h, w = image.shape
+        margin = 24.0
+        uv = rand(N, 2) * torch.tensor([w - 2 * margin, h - 2 * margin],
+                                       device=device) + margin
+        tmpl = klt.make_template(*pyramid.build_with_gradients(
+            image, cfg.num_levels), cfg, uv, rand(N) < 0.95)
+        if cfg.klt_affine_warp:
+            big_ok = tmpl.big_ok.clone()
+            big_ok[:, 0::7] = False
+            tmpl = tmpl._replace(big_ok=big_ok)
+        target = 1.1 * image + 3.0 + 2.0 * randn(h, w)
+        levels = pyramid.build_with_gradients(target, cfg.num_levels)[0][:L]
+        ang = 2.0 * math.pi * rand(N)
+        kw = dict(edge_dir=torch.stack([torch.cos(ang), torch.sin(ang)], -1),
+                  is_edgelet=rand(N) < 0.3,
+                  A_inv=(torch.eye(2, device=device) + 0.03 * randn(N, 2, 2)
+                         if cfg.klt_affine_warp else None))
+        return levels, tmpl, cfg, uv + 1.5 * randn(N, 2), kw
+
+    def extra_of(cfg, kernel, plain, use, extra):
+        return {"use": use, "iterations": cfg.klt_levels * cfg.klt_max_iters,
+                **graphed_us(kernel, plain),
+                "bound_note": "latency: the iterations depend on each other",
+                **(extra or {})}
+
+    def cost(prob, n=1):
+        levels, tmpl, cfg, _, _ = prob
+        nbytes, flops = klt_bytes_flops(
+            tmpl.mask.shape[-1], cfg.klt_patch, cfg.klt_levels,
+            cfg.klt_max_iters, tmpl.big.shape[-1])
+        return n * nbytes, n * flops
+
+    def klt_case(prob, path, use):
+        """The row compares the positions (recorded), klt_errors the
+        rest."""
+        levels, tmpl, cfg, uv0, kw = prob
+
+        def kernel():
+            return kk.klt_track(levels, tmpl, cfg, uv0, **kw)
+
+        def plain():
+            return klt.track_plain(levels, tmpl, cfg, uv0, **kw)
+        first, again = kernel(), kernel()
+        require(all(torch.equal(a, b) for a, b in zip(first, again)),
+                f"klt_track {use}: not bit-reproducible")
+        errs = klt_errors(first, plain(), use)
+        record("klt_track", lambda: kernel()[0], lambda: plain()[0],
+               KLT_TOL_PX, 0.0,
+               [list(levels[0].shape), tmpl.mask.shape[-1], cfg.klt_patch],
+               path, *cost(prob), None, extra_of(
+                   cfg, kernel, plain, use, dict(
+                       bit_reproducible=True, n_warped=int(first[3]),
+                       converged=int(first[1].sum()), **errs)))
+
+    def batch_klt_case(prob, n, path, use):
+        """n problems from n perturbations of the initial positions, the
+        rest shared (expanded, as a vmap leaves it)."""
+        levels, tmpl, cfg, uv0, kw = prob
+        uvs = torch.stack([uv0 + 0.3 * randn(*uv0.shape) for _ in range(n)])
+
+        def kernel():
+            return torch.func.vmap(lambda uv: kk.klt_track(
+                levels, tmpl, cfg, uv, **kw))(uvs)
+
+        def plain():
+            return torch.func.vmap(lambda uv: klt.track_plain(
+                levels, tmpl, cfg, uv, **kw))(uvs)
+        out = kernel()
+        for b in range(n):
+            one = kk.klt_track(levels, tmpl, cfg, uvs[b], **kw)
+            require(all(torch.equal(o[b], y) for o, y in zip(out, one)),
+                    f"klt_track {use}: problem {b} differs from its "
+                    f"one-problem launch")
+        errs = klt_errors(out, plain(), use)
+        record("klt_track", lambda: kernel()[0], lambda: plain()[0],
+               KLT_TOL_PX, 0.0,
+               [n, list(levels[0].shape), tmpl.mask.shape[-1],
+                cfg.klt_patch], path, *cost(prob, n), None, extra_of(
+                   cfg, kernel, plain, use, dict(
+                       problems=n, each_problem_bit_equal=True, **errs)))
+
+    eu = klt_problem(img, SvoConfig())
+    klt_case(eu, "phase3", "tracking")
+    klt_case(klt_problem(kitti, kitti_config()), "phase4", "KITTI tracking")
+    klt_case(klt_problem(img, stress_config()), "phase5", "stress tracking")
+    klt_case(klt_problem(img, SvoConfig(klt_affine_warp=True)), "phase6",
+             "affine-warp tracking")
+    batch_klt_case(eu, BATCH, "phase8", "8 sequences, tracking")
 
 
 def count_syncs(fn):
@@ -2170,7 +2338,7 @@ def global_map_run(cfg, states, counters):
         repeats = bool(torch.equal(again.kf_T_wk, refined.kf_T_wk)
                        and torch.equal(again.X, refined.X))
         # the map is built from stored thumbnails: no pyramid, so no B1,
-        # and from measured edges: no pose refinement
+        # and from measured edges: no KLT and no pose refinement
         launches = read_counters(counters, "by the global map",
                                  needs=("gradients", "sample_patches",
                                         "align_levels"))
@@ -3088,7 +3256,8 @@ def bench_entry_points(phase3_ate: float) -> dict:
 def kernel_calls(fn):
     """fn() with every call of the kernels' custom ops (``svo::pyramid``,
     ``svo::gradients``, ``svo::sample_patches``, ``svo::gn_accumulate``,
-    ``svo::align_levels``) recorded below vmap, where each op gets its
+    ``svo::align_levels``, ``svo::refine_pose``, ``svo::klt_track``)
+    recorded below vmap, where each op gets its
     problem axis: (fn's result, [(op, arguments, result)], each tensor a
     copy)."""
     import torch
@@ -3118,27 +3287,30 @@ def check_kernel_calls(calls) -> dict:
     """Each recorded kernel call's result against its plain version on the
     same arguments, at phase 2's tolerances: B1, B2 and B3 bit for bit;
     B4's H, g and cost within 1e-4 of the largest entry, its counts
-    equal; align_levels within ALIGN_TOL_REL of the largest entry. Returns,
+    equal; align_levels within ALIGN_TOL_REL of the largest entry;
+    klt_track's positions and residuals within KLT_TOL_PX and KLT_TOL_RES,
+    its convergence flags and count equal. Returns,
     per kernel, its calls, their argument shapes and the largest errors;
     requires every kernel the path runs on the calls' device among them."""
     import torch
     from stereo_svo_tpu_torch.ops.kernels import align_kernel as ak
+    from stereo_svo_tpu_torch.ops.kernels import klt_kernel as kk
     from stereo_svo_tpu_torch.ops.kernels import pyramid_kernel as pk
     from stereo_svo_tpu_torch.ops.kernels import refine_kernel as rk
 
     rows = {}
 
-    def note(name, shape, out, ref, tol_rel=0.0):
+    def note(name, shape, out, ref, tol_rel=0.0, tol_abs=0.0):
         err_abs, err_rel = _max_err(out, ref)
         row = rows.setdefault(name, {"calls": 0, "shapes": [],
                                      "max_abs_err": 0.0, "max_rel_err": 0.0,
-                                     "tol_abs": 0.0, "tol_rel": tol_rel})
+                                     "tol_abs": tol_abs, "tol_rel": tol_rel})
         row["calls"] += 1
         if shape not in row["shapes"]:
             row["shapes"].append(shape)
         row["max_abs_err"] = max(row["max_abs_err"], err_abs)
         row["max_rel_err"] = max(row["max_rel_err"], err_rel)
-        require(err_abs <= 0.0 or err_rel <= tol_rel,
+        require(err_abs <= tol_abs or err_rel <= tol_rel,
                 f"{name} {shape}: kernel disagrees with its plain version "
                 f"(abs {err_abs}, rel {err_rel})")
 
@@ -3187,14 +3359,22 @@ def check_kernel_calls(calls) -> dict:
                     f"refine_pose {shape}: inliers differ from the plain "
                     f"version")
             note("refine_pose", shape, out[0], ref[0], tol_rel=ALIGN_TOL_REL)
-    # on the CPU the alignment is the chain (B3 and B4) and the refinement
-    # its chain of ops; on the card one align_levels and one refine_pose
-    # launch
+        elif op == "svo::klt_track":
+            # positions and residuals: float32 sums in another order than
+            # the chain's (klt_errors); the flags and the count exact
+            ref = kk.klt_track_plain(*args)
+            klt_errors(out, ref, str(shape))
+            fin = torch.isfinite(ref[0])
+            note("klt_track", shape, out[0][fin], ref[0][fin],
+                 tol_abs=KLT_TOL_PX)
+    # on the CPU the alignment is the chain (B3 and B4), the KLT the chain
+    # of B3 calls and the refinement its chain of ops; on the card one
+    # align_levels, one klt_track and one refine_pose launch
     cpu = any(a.device.type == "cpu" for _, args, _ in calls for a in args
               if isinstance(a, torch.Tensor))
     missing = [k for k in KERNELS if k not in rows
-               and k not in (("align_levels", "refine_pose") if cpu
-                             else ("gn_accumulate",))]
+               and k not in (("align_levels", "refine_pose", "klt_track")
+                             if cpu else ("gn_accumulate",))]
     require(not missing, f"no recorded call of {missing}")
     return rows
 
@@ -3371,12 +3551,12 @@ def multi_rank_run(cfg, ref8: dict, ref11: dict, smi: str) -> dict:
                 f"{r['device']}")
         read = {"batched": r["launches_batched"], "map": r["launches_map"]}
         # the map is built from stored thumbnails: no pyramid, so no B1,
-        # and from measured edges: no pose refinement
+        # and from measured edges: no KLT and no pose refinement
         missing = [k for k, v in read["batched"].items()
                    if v < 1 and k in PATH_KERNELS] + [
             k for k, v in read["map"].items()
             if v < 1 and k in PATH_KERNELS
-            and k not in ("halfsample", "refine_pose")]
+            and k not in ("halfsample", "refine_pose", "klt_track")]
         require(not missing, f"phase 17: rank {r['rank']} never launched "
                              f"{missing}")
     traj = by_sequence(ranks, "T_wc", BATCH)

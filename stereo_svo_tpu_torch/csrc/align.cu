@@ -71,6 +71,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "bilinear.cuh"    // group_size, taps_of, blend
 #include "se3_solve.cuh"   // se3_exp, se3_compose_into, solve6_lanes
 
 namespace {
@@ -85,54 +86,8 @@ constexpr int kMaxImages = 3;     // B3: image, gx, gy of one level
 constexpr int kMaxProblems = 65535;   // the grid's y dimension
 constexpr int kOut = 45;          // B4's outputs per problem
 
-__device__ __forceinline__ float clampf_nan(float x, float lo, float hi) {
-  // like torch.clamp / jnp.clip: a NaN stays NaN
-  x = x < lo ? lo : x;
-  return x > hi ? hi : x;
-}
-
-__device__ __forceinline__ int clampi(int x, int lo, int hi) {
-  return x < lo ? lo : (x > hi ? hi : x);
-}
-
-// Threads per centre for P x P patches.
-__host__ __device__ constexpr int group_size(int P) {
-  return P * P <= 16 ? 16 : (P * P <= 64 ? 32 : 128);
-}
-
 __host__ inline int sample_block_threads(int P) {
   return group_size(P) <= 32 ? 64 : 128;
-}
-
-// The taps of one output, as interp.bilinear computes them.
-struct Taps {
-  int iu0, iu1, iv0, iv1;
-  float du, dv;
-};
-
-__device__ __forceinline__ Taps taps_of(float cu, float cv, int p, int P,
-                                        int H, int W, float umax,
-                                        float vmax) {
-  const float half = (float)(P - 1) * 0.5f;
-  const int py = p / P, px = p - py * P;
-  const float u = clampf_nan(cu + ((float)px - half), 0.0f, umax);
-  const float v = clampf_nan(cv + ((float)py - half), 0.0f, vmax);
-  const float u0 = floorf(u), v0 = floorf(v);
-  Taps t;
-  t.du = u - u0;
-  t.dv = v - v0;
-  t.iu0 = clampi((int)u0, 0, W - 1);
-  t.iv0 = clampi((int)v0, 0, H - 1);
-  t.iu1 = min(t.iu0 + 1, W - 1);
-  t.iv1 = min(t.iv0 + 1, H - 1);
-  return t;
-}
-
-__device__ __forceinline__ float blend(float p00, float p01, float p10,
-                                       float p11, float du, float dv) {
-  const float top = p00 + du * (p01 - p00);
-  const float bot = p10 + du * (p11 - p10);
-  return top + dv * (bot - top);
 }
 
 // Top-left corner of a centre's staged window along one axis, kept in

@@ -23,7 +23,8 @@ The bodies, in the order ``F`` runs them:
   ``track_phase`` with ``prev_ok`` True / False (False adds the rotated
   relocalisation variants), its state copied into the static ``S'`` and
   its ``TrackCtx`` into a static one, then ``step.device_decisions`` into
-  the predicates of ``K`` and ``K_loop`` (B3, ``align_levels``);
+  the predicates of ``K`` and ``K_loop`` (B3, ``align_levels``,
+  ``klt_track``, ``refine_pose``);
 * ``K`` (``need_kf & !run_loop``) / ``K_loop`` (``run_loop``): ``kf_phase``
   on ``S'`` — ``keyframe.insert`` (B3 in the stereo match) and, with
   ``use_ba``, window BA; ``K_loop`` adds the online loop closure (B2, B3,

@@ -74,10 +74,10 @@ def _dryrun_frames(cfg: SvoConfig, n: int, rank: int, device) -> tuple:
 
 def _dryrun_steps(cfg: SvoConfig, left, right, device):
     """The dry run's steps on one sequence: the bootstrap step, then one
-    tracked step on the same frames (a bootstrap runs no alignment and no
-    pose refinement, so ``align_levels`` and ``refine_pose`` launch only
-    there), through the eager batched step. Returns the
-    tracked step's FrameOut."""
+    tracked step on the same frames (a bootstrap runs no alignment, no KLT
+    and no pose refinement, so ``align_levels``, ``klt_track`` and
+    ``refine_pose`` launch only there), through the eager batched step.
+    Returns the tracked step's FrameOut."""
     from .engine.state import init_states
     from .engine.step import make_batched_step
 

@@ -4,7 +4,7 @@ Each wrapper takes the plain version for CPU tensors and launches its
 kernel for CUDA tensors — there is no fallback between the two. The
 paths call them through functional custom ops (``svo::pyramid``,
 ``svo::gradients``, ``svo::sample_patches``, ``svo::gn_accumulate``,
-``svo::align_levels``, ``svo::refine_pose``) whose
+``svo::align_levels``, ``svo::refine_pose``, ``svo::klt_track``) whose
 ``torch.func.vmap`` rules launch a kernel once for a whole batch, the batch
 as its problem axis.
 
@@ -58,6 +58,10 @@ KERNELS: Dict[str, Kernel] = {
     "refine_pose": Kernel(
         "refine_pose_kernel", "csrc/pose_refine.cu", "refine_kernel",
         "none (fuses stereo_svo_tpu/frontend/pose_refine.py:refine)"),
+    "klt_track": Kernel(
+        "klt_track_kernel", "csrc/klt.cu", "klt_kernel",
+        "none (fuses stereo_svo_tpu/ops/klt.py:track with "
+        "ops/pallas/align_kernel.py:110)"),
 }
 
 

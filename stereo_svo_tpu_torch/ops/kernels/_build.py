@@ -53,6 +53,9 @@ _SIGNATURES = {
     "svo_refine_pose": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P,
                         _L, _P, _L, _P, _L, _I, _P, _P, _I, _I, _P, _P, _P,
                         _I, _P],
+    "svo_klt_track": [_P, _P, _P, _I, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L,
+                      _P, _L, _I, _P, _L, _P, _L, _P, _L, _P, _L, _I, _I, _I,
+                      _F, _F, _I, _P, _P, _P, _P, _P, _I, _P],
     # the frame graph's assembly (csrc/frame_graph.cu)
     "svo_graph_create": [_P],
     "svo_graph_destroy": [_P],

@@ -405,23 +405,26 @@ def _(levels, p_ref, patches, jac, mask, T_init, intrinsics, bounds,
     return T_init.new_empty(T_init.shape[:-2] + (ALIGN_OUT,))
 
 
-def _align_vmap_rule(info, in_dims, *args):
-    """``_vmap_rule`` of ``svo::align_levels``, whose first argument is a
-    list of tensors: every batched tensor's dim to the front, the others
-    expanded (no copy), then one call of the op."""
-    def front(a, d):
-        if not isinstance(a, torch.Tensor):
-            return a
-        return (a.movedim(d, 0) if d is not None
-                else a.expand((info.batch_size,) + a.shape))
-    levels = [front(a, d) for a, d in zip(args[0], in_dims[0])]
-    rest = [front(a, d) for a, d in zip(args[1:], in_dims[1:])]
-    return align_levels_op(levels, *rest), 0
+def _list_vmap_rule(op):
+    """``_vmap_rule`` of an op whose first argument is a list of tensors
+    (``svo::align_levels``, ``svo::klt_track``): every batched tensor's dim
+    to the front, the others expanded (no copy), then one call of the
+    op."""
+    def rule(info, in_dims, *args):
+        def front(a, d):
+            if not isinstance(a, torch.Tensor):
+                return a
+            return (a.movedim(d, 0) if d is not None
+                    else a.expand((info.batch_size,) + a.shape))
+        levels = [front(a, d) for a, d in zip(args[0], in_dims[0])]
+        rest = [front(a, d) for a, d in zip(args[1:], in_dims[1:])]
+        return op(levels, *rest), 0
+    return rule
 
 
 torch.library.register_vmap(sample_patches_op, _vmap_rule(sample_patches_op))
 torch.library.register_vmap(gn_accumulate_op, _vmap_rule(gn_accumulate_op))
-torch.library.register_vmap(align_levels_op, _align_vmap_rule)
+torch.library.register_vmap(align_levels_op, _list_vmap_rule(align_levels_op))
 
 
 def align_levels(levels, p_ref: torch.Tensor, patches: torch.Tensor,

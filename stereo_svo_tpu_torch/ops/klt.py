@@ -1,12 +1,17 @@
 """Pyramidal inverse-compositional Lucas-Kanade feature tracking — port of
 ``stereo_svo_tpu/ops/klt.py``.
 
-Every iteration samples all N patches of the current level with kernel B3
-(``interp.sample_patch``): klt_levels × klt_max_iters calls per frame. With
+On CUDA :func:`track` is one launch of ``klt_track_kernel``
+(``kernels/klt_kernel.klt_track``; under ``vmap``, one for the batch): every
+level and iteration, the template warp included. Its plain version,
+:func:`track_plain`, the chain of PyTorch ops that the CPU runs, samples all
+N patches of the current level with kernel B3 (``interp.sample_patch``)
+every iteration: klt_levels × klt_max_iters calls per frame. With
 ``klt_affine_warp`` the keyframe also stores an oversized 2P×2P patch per
-level (B3 at 2P), which ``warp_template_level`` resamples once per level
-and frame through each feature's pose-predicted affine warp — a batched
-gather inside each feature's own patch, not B3 on a shared image.
+level (B3 at 2P, :func:`make_template`), which ``warp_template_level``
+resamples once per level and frame through each feature's pose-predicted
+affine warp — a batched gather inside each feature's own patch, not B3 on
+a shared image.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import torch
 
 from ..config import SvoConfig
 from . import interp, pyramid, solve
+from .kernels import _build, klt_kernel
 
 
 class KltTemplate(NamedTuple):
@@ -98,7 +104,27 @@ def track(levels_cur: Sequence[torch.Tensor], tmpl: KltTemplate,
           is_edgelet: torch.Tensor | None = None,
           A_inv: torch.Tensor | None = None,
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Refine feature positions in the current frame.
+    """Refine feature positions in the current frame: :func:`track_plain`'s
+    arguments and return. On CUDA one ``klt_track_kernel`` launch
+    (``svo::klt_track``); on the CPU :func:`track_plain`."""
+    levels = list(levels_cur[:cfg.klt_levels])
+    if _build.plain(uv_init, *levels, *tmpl, edge_dir, is_edgelet, A_inv):
+        return track_plain(levels, tmpl, cfg, uv_init, edge_dir=edge_dir,
+                           is_edgelet=is_edgelet, A_inv=A_inv)
+    return klt_kernel.klt_track(levels, tmpl, cfg, uv_init, edge_dir=edge_dir,
+                                is_edgelet=is_edgelet, A_inv=A_inv)
+
+
+def track_plain(levels_cur: Sequence[torch.Tensor], tmpl: KltTemplate,
+                cfg: SvoConfig, uv_init: torch.Tensor,
+                edge_dir: torch.Tensor | None = None,
+                is_edgelet: torch.Tensor | None = None,
+                A_inv: torch.Tensor | None = None,
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor]:
+    """:func:`track` as a chain of PyTorch ops and B3 launches (the
+    reference's arithmetic); under ``torch.func.vmap`` each op takes the
+    batch.
 
     uv_init: (N,2) predicted level-0 positions. ``edge_dir``/``is_edgelet``
     constrain edgelets to a 1-DoF update along their gradient normal.

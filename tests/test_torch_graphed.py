@@ -323,6 +323,10 @@ def test_counter_of_reads_libcuda_and_profiler_names():
                         "RefineArgsE",
                         "void (anonymous namespace)::refine_pose_kernel<256>"
                         "((anonymous namespace)::RefineArgs)"),
+        "klt_track": ("_ZN12_GLOBAL__N_116klt_track_kernelILi8EEEvNS_7KltArgs"
+                      "Ei",
+                      "void (anonymous namespace)::klt_track_kernel<8>("
+                      "(anonymous namespace)::KltArgs, int)"),
     }
     assert set(names) == set(kernels.KERNELS)
     for key, forms in names.items():
@@ -452,10 +456,11 @@ def test_replays_count_launches_and_repeat(cuda_device):
     assert nodes["P"] == dict(dict.fromkeys(kernels.KERNELS, 0),
                               halfsample=1, gradients=1)
     assert step.nodes["P"]["kernel"] == 2
-    # the alignment and the pose refinement are one node each; B4 is off
-    # the main path
+    # the alignment, the KLT and the pose refinement are one node each; B4
+    # is off the main path
     for body in ("A_ok", "A_fail"):
         assert nodes[body]["align_levels"] == 1
+        assert nodes[body]["klt_track"] == 1
         assert nodes[body]["refine_pose"] == 1
     assert nodes["A_ok"]["gn_accumulate"] == 0
     state, _ = step(step.state, lefts[0], rights[0])

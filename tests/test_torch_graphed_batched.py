@@ -242,5 +242,6 @@ def test_cuda_graphed_batched_equals_eager_and_node_counts(cuda_device):
                                                         bstep.nodes[name])
     assert bstep.kernel_nodes["P"] == dict(dict.fromkeys(kernels.KERNELS, 0),
                                            halfsample=1, gradients=1)
-    for body in ("A_ok", "A_fail"):     # the batch's refinements: one node
-        assert bstep.kernel_nodes[body]["refine_pose"] == 1
+    for body in ("A_ok", "A_fail"):     # the batch's refinements and KLTs:
+        assert bstep.kernel_nodes[body]["refine_pose"] == 1   # one node each
+        assert bstep.kernel_nodes[body]["klt_track"] == 1

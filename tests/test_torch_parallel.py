@@ -296,7 +296,8 @@ def test_dryrun_multichip_4(capsys):
         assert (rep["backend"], rep["device"]) == ("gloo", "cpu")
         assert set(rep["launches"]) == {"halfsample", "gradients",
                                         "sample_patches", "gn_accumulate",
-                                        "align_levels", "refine_pose"}
+                                        "align_levels", "refine_pose",
+                                        "klt_track"}
         assert not any(rep["launches"].values())
 
 
@@ -397,11 +398,11 @@ def test_phase17_dryrun_kernel_calls_at_their_shapes(dryrun_calls):
     and 8, one problem) and pass the check against the plain versions."""
     import chip_smoke
     rows = chip_smoke.check_kernel_calls(dryrun_calls)
-    # on the CPU the alignment is the chain of B3 and B4 calls and the
-    # pose refinement its chain of ops (on the card one align_levels and
-    # one refine_pose launch)
+    # on the CPU the alignment is the chain of B3 and B4 calls, the KLT the
+    # chain of B3 calls and the pose refinement its chain of ops (on the
+    # card one align_levels, one klt_track and one refine_pose launch)
     assert set(rows) == set(kernels.KERNELS) - {"align_levels",
-                                                "refine_pose"}
+                                                "refine_pose", "klt_track"}
     assert rows["halfsample"]["shapes"] == [[[1, 96, 128], 2]]
     assert rows["gradients"]["shapes"] == [[[1, 96, 128], 2]]
     assert {tuple(s[0]) for s in rows["sample_patches"]["shapes"]} == {
